@@ -1,0 +1,13 @@
+"""adaa_tpu_torch — the PyTorch/CUDA port of adaa_tpu.
+
+Module paths mirror ``adaa_tpu`` (``ops``, ``models``, ``attacks``,
+``utils``) so each module's JAX counterpart is easy to find. The JAX
+package is the reference this port is tested against; this package
+imports ``torch`` and numpy only, never ``jax``, ``flax`` or
+``adaa_tpu``.
+
+The main path is untargeted PGD-10 on the bf16 LCNN with the LFCC
+frontend (``adaa_tpu_torch.bench.measure_torch``). Its one hand-written
+kernel is LCNN's fused first block (``ops/layer0.py`` +
+``csrc/layer0.cu``), built for ``sm_90a`` at first use.
+"""

@@ -1,0 +1,41 @@
+"""Detector factory (port of ``adaa_tpu/models/__init__.py``).
+
+Only LCNN is ported so far; SpecRNet and RawNet3 are in ROADMAP.md.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import torch
+from torch import nn
+
+from adaa_tpu_torch.models.lcnn import LCNN
+
+WAVE_LENGTH = 64_600  # canonical input length (reference base_dataset.py:27)
+
+
+def get_model(model_name: str, config: Dict[str, Any]) -> nn.Module:
+    """Build a detector (uninitialised; see ``init_model``)."""
+    if model_name == "lcnn":
+        compute_dtype = torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else None
+        return LCNN(
+            input_channels=config.get("input_channels", 1),
+            num_coefficients=config.get("num_coefficients", 80),
+            frontend_algorithm=tuple(config.get("frontend_algorithm", [])),
+            compute_dtype=compute_dtype,
+            precision=config.get("precision"),
+        )
+    if model_name in ("specrnet", "rawnet3"):
+        raise NotImplementedError(
+            f"'{model_name}' is not ported to adaa_tpu_torch yet (ROADMAP.md, queue 1)"
+        )
+    raise ValueError(f"Model '{model_name}' not supported")
+
+
+def init_model(module: nn.Module, generator: torch.Generator,
+               device: Union[str, torch.device]) -> nn.Module:
+    """Move ``module`` to ``device`` and draw its initial weights from
+    ``generator`` (which must live on that device)."""
+    module = module.to(device)
+    module.reset_parameters(generator)
+    return module
