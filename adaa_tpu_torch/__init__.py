@@ -7,7 +7,11 @@ imports ``torch`` and numpy only, never ``jax``, ``flax`` or
 ``adaa_tpu``.
 
 The main path is untargeted PGD-10 on the bf16 LCNN with the LFCC
-frontend (``adaa_tpu_torch.bench.measure_torch``). Its one hand-written
+frontend (``adaa_tpu_torch.bench.measure_torch``). Its hand-written
 kernel is LCNN's fused first block (``ops/layer0.py`` +
-``csrc/layer0.cu``), built for ``sm_90a`` at first use.
+``csrc/layer0.cu``). The fused configuration of the same model
+(``bench.setup(fused=True)``) adds the fused LFCC forward
+(``ops/lfcc_fused.py`` + ``csrc/lfcc.cu``) and the fused trunk segments
+(``ops/trunk.py`` + ``csrc/trunk.cu``). All are built for ``sm_90a`` at
+first use.
 """

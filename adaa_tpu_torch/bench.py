@@ -7,6 +7,11 @@ through the port's user entry points (``models.get_model``,
 ``attacks.make_logits_fn``, ``attacks.build_attack``,
 ``attacks.attack_in_wave_space``) and timed with CUDA events. There is
 no CPU path: a number from the CPU is not this metric.
+
+``fused=True`` builds the fused configuration of the same model: the
+fused LFCC kernel and the two fused trunk segments switched on through
+the model's own arguments (the JAX package's ``ADAA_PALLAS_FRONTEND=1``
+and ``ADAA_FUSED_TRUNK=1``), not through the environment.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from adaa_tpu_torch.utils import set_seed
 
 BATCH = 256
 WAVE_LEN = 64_600
-CONFIG = {"input_channels": 1, "frontend_algorithm": ["lfcc"], "compute_dtype": "bfloat16"}
+CONFIG = {"input_channels": 1, "frontend_algorithm": ["lfcc"], "compute_dtype": "bfloat16",
+          "fused_frontend": False, "fused_trunk": False}
+FUSED_CONFIG = {**CONFIG, "fused_frontend": True, "fused_trunk": True}
 
 
 class MainPath(NamedTuple):
@@ -31,10 +38,13 @@ class MainPath(NamedTuple):
     generator: torch.Generator
 
 
-def setup(batch: int = BATCH, seed: int = 0, device: str = "cuda") -> MainPath:
-    """The main path's model and attack, and a batch of seeded waves."""
+def setup(batch: int = BATCH, seed: int = 0, device: str = "cuda",
+          fused: bool = False) -> MainPath:
+    """The main path's model (the fused configuration with ``fused``) and
+    attack, and a batch of seeded waves."""
     gen = set_seed(seed, device)
-    model = models.init_model(models.get_model("lcnn", CONFIG), gen, device)
+    config = FUSED_CONFIG if fused else CONFIG
+    model = models.init_model(models.get_model("lcnn", config), gen, device)
     logits_fn = attacks.make_logits_fn(model)
     attack = attacks.attack_in_wave_space(attacks.build_attack("PGD", logits_fn))
     rng = np.random.default_rng(seed)
@@ -44,11 +54,11 @@ def setup(batch: int = BATCH, seed: int = 0, device: str = "cuda") -> MainPath:
 
 
 def measure_torch(batch: int = BATCH, iters: int = 10, warmup: int = 2,
-                  seed: int = 0) -> float:
+                  seed: int = 0, fused: bool = False) -> float:
     """Adversarial examples per second of PGD-10 at ``batch`` on cuda:0."""
     if not torch.cuda.is_available():
         raise RuntimeError("measure_torch needs a CUDA device")
-    model, attack, x, y, gen = setup(batch, seed, "cuda")
+    model, attack, x, y, gen = setup(batch, seed, "cuda", fused)
     for _ in range(warmup):
         attack(x, y, gen)
     torch.cuda.synchronize()

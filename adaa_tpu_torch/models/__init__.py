@@ -24,6 +24,8 @@ def get_model(model_name: str, config: Dict[str, Any]) -> nn.Module:
             frontend_algorithm=tuple(config.get("frontend_algorithm", [])),
             compute_dtype=compute_dtype,
             precision=config.get("precision"),
+            fused_frontend=config.get("fused_frontend"),
+            fused_trunk=config.get("fused_trunk"),
         )
     if model_name in ("specrnet", "rawnet3"):
         raise NotImplementedError(

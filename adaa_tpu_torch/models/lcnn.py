@@ -16,6 +16,16 @@ cuDNN's native layout. Two paths:
   eval-mode BN folds into the preceding conv's output channels (a
   positive per-channel affine commutes with the MFM and pool maxes);
   the convs run in bf16 with ``mfm`` / ``mfm_pool_2d``.
+* the fused configuration, two switches on top of the bf16 path (as
+  the JAX package's ``ADAA_PALLAS_FRONTEND=1`` and ``ADAA_FUSED_TRUNK=1``):
+  ``fused_frontend`` sends LFCC through the fused kernel
+  (``ops/lfcc_fused.py``, f32), and ``fused_trunk`` runs conv3/conv6 +
+  pool and conv10/conv13 + pool as the two fused segments
+  (``ops/trunk.py``). ``None`` reads the environment variable per call.
+
+``precision="highest"`` runs every trunk conv in full f32, forward and
+backward (TF32 off in both), as the JAX package's
+``Precision.HIGHEST`` does.
 
 Module names give the reference's ``state_dict`` keys
 (``m_transform.<i>``, ``m_before_pooling.<j>.l_blstm``,
@@ -24,7 +34,7 @@ Module names give the reference's ``state_dict`` keys
 """
 from __future__ import annotations
 
-import contextlib
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -32,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adaa_tpu_torch.models import layers
-from adaa_tpu_torch.ops import frontends, layer0
+from adaa_tpu_torch.ops import frontends, layer0, trunk
 
 # Sequential index -> (in, out, kernel) of each conv (conv "0" takes the
 # frontend's input_channels, 1 for LFCC), and the channels of each BN
@@ -48,12 +58,42 @@ TRUNK = (
     ("16", "18", False), ("19", "21", False), ("22", "24", False), ("25", None, True),
 )
 LAYER0_SHAPE = (layer0.T_IN, layer0.F_IN, 1)
+SEGMENT_A_SHAPE = (trunk.SEGMENT_A.t, trunk.SEGMENT_A.f, trunk.SEGMENT_A.c_in)
 
 
-def _conv_nhwc(h: torch.Tensor, weight: torch.Tensor,
-               bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """'SAME' conv of a channels-last (B, H, W, C) tensor."""
-    y = F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=weight.shape[-1] // 2)
+class _IeeeConv2d(torch.autograd.Function):
+    """A 'SAME' stride-1 conv whose forward and backward both run with
+    TF32 off (cuDNN would otherwise round the backward's products)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        with layer0.ieee_f32():
+            return F.conv2d(x, weight, bias, padding=weight.shape[-1] // 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        pad = weight.shape[-1] // 2
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                ctx.has_bias and ctx.needs_input_grad[2]]
+        with layer0.ieee_f32():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, weight, [weight.shape[0]] if ctx.has_bias else None,
+                [1, 1], [pad, pad], [1, 1], False, [0, 0], 1, mask)
+        return dx, dw, db
+
+
+def _conv_nhwc(h: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+               exact: bool = False) -> torch.Tensor:
+    """'SAME' conv of a channels-last (B, H, W, C) tensor; ``exact`` keeps
+    TF32 off in the forward and the backward."""
+    x = h.permute(0, 3, 1, 2)
+    if exact:
+        y = _IeeeConv2d.apply(x, weight, bias)
+    else:
+        y = F.conv2d(x, weight, bias, padding=weight.shape[-1] // 2)
     return y.permute(0, 2, 3, 1)
 
 
@@ -77,23 +117,31 @@ class LCNN(nn.Module):
       frontend_algorithm: e.g. ["lfcc"]; empty -> feature input expected.
       compute_dtype: ``torch.bfloat16`` for the fast trunk; parameters
         and the LSTM tail stay float32.
-      precision: "highest" keeps f32 convs without TF32 in the forward
-        (the backward follows torch's global TF32 setting) and the f32
-        frontend.
+      precision: "highest" keeps f32 convs without TF32, forward and
+        backward, and the f32 frontend.
+      fused_frontend: LFCC through the fused kernel; None reads
+        ``ADAA_PALLAS_FRONTEND == "1"`` per call.
+      fused_trunk: the two fused trunk segments on the bf16 eval path;
+        None reads ``ADAA_FUSED_TRUNK == "1"`` per call.
     """
 
     def __init__(self, input_channels: int = 1, num_coefficients: int = 80,
                  frontend_algorithm: Sequence[str] = (),
                  compute_dtype: Optional[torch.dtype] = None,
-                 precision: Optional[str] = None):
+                 precision: Optional[str] = None,
+                 fused_frontend: Optional[bool] = None,
+                 fused_trunk: Optional[bool] = None):
         super().__init__()
         self.input_channels = input_channels
         self.num_coefficients = num_coefficients
         self.frontend_algorithm = tuple(frontend_algorithm)
         self.compute_dtype = compute_dtype
         self.precision = precision
-        # checks the layer-0 kernel: run its plain-torch twin on any device
-        self.conv0_reference = False
+        self.fused_frontend = fused_frontend
+        self.fused_trunk = fused_trunk
+        # checks the kernels: the fused ops (layer 0, LFCC, trunk segments)
+        # run their plain-torch versions on any device
+        self.plain_ops = False
 
         convs = {k: nn.Conv2d(input_channels if k == "0" else cin, cout, ks, padding=ks // 2)
                  for k, (cin, cout, ks) in CONVS.items()}
@@ -124,7 +172,8 @@ class LCNN(nn.Module):
         # accelerator, decided inside the frontend per call)
         fe_compute = ("bf16" if self.compute_dtype == torch.bfloat16
                       and self.precision != "highest" else "f32")
-        feat = frontends.get_frontend(list(self.frontend_algorithm), compute=fe_compute)(x)
+        feat = frontends.get_frontend(list(self.frontend_algorithm), compute=fe_compute,
+                                      fused=self.fused_frontend, reference=self.plain_ops)(x)
         return feat[:, None] if feat.dim() < 4 else feat  # (B, C, n_coeff, T)
 
     def _folded(self, conv_key: str, bn_key: Optional[str]):
@@ -140,6 +189,11 @@ class LCNN(nn.Module):
             bias = bias * s2 + torch.cat([t, t])
         return kernel, bias
 
+    def _fused_trunk_on(self) -> bool:
+        if self.fused_trunk is None:
+            return os.environ.get("ADAA_FUSED_TRUNK") == "1"
+        return self.fused_trunk
+
     def _bn(self, key: str, h: torch.Tensor) -> torch.Tensor:
         bn = self.m_transform[key]
         return bn(h.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1).to(h.dtype)
@@ -153,33 +207,42 @@ class LCNN(nn.Module):
         if dtype is not None:
             h = h.to(dtype)
         fast = dtype == torch.bfloat16 and self.precision is None and not self.training
-        exact = layer0.ieee_f32() if self.precision == "highest" else contextlib.nullcontext()
+        exact = self.precision == "highest"
 
-        with exact:
-            conv0 = self.m_transform["0"]
-            if fast and tuple(h.shape[1:]) == LAYER0_SHAPE:
-                fn = (layer0.fused_conv0_mfm_pool_reference if self.conv0_reference
-                      else layer0.fused_conv0_mfm_pool)
-                h = fn(h[..., 0], conv0.weight.detach(), conv0.bias.detach())
-            else:
-                w0 = conv0.weight.to(h.dtype)
-                h = layers.max_pool_2d(
-                    layers.max_feature_map(_conv_nhwc(h, w0, conv0.bias.to(h.dtype))))
+        conv0 = self.m_transform["0"]
+        if fast and tuple(h.shape[1:]) == LAYER0_SHAPE:
+            fn = (layer0.fused_conv0_mfm_pool_reference if self.plain_ops
+                  else layer0.fused_conv0_mfm_pool)
+            h = fn(h[..., 0], conv0.weight.detach(), conv0.bias.detach())
+        else:
+            w0 = conv0.weight.to(h.dtype)
+            h = layers.max_pool_2d(
+                layers.max_feature_map(_conv_nhwc(h, w0, conv0.bias.to(h.dtype), exact)))
 
-            for conv_key, bn_key, pooled in TRUNK:
-                if fast:
-                    kernel, bias = self._folded(conv_key, bn_key)
-                    # bias added after the conv's bf16 store, as the JAX trunk does
-                    y = _conv_nhwc(h, kernel.to(dtype), None) + bias.to(dtype)
-                    h = layers.mfm_pool_2d(y) if pooled else layers.max_feature_map(y)
-                    continue
-                conv = self.m_transform[conv_key]
-                h = layers.max_feature_map(
-                    _conv_nhwc(h, conv.weight.to(h.dtype), conv.bias.to(h.dtype)))
-                if pooled:
-                    h = layers.max_pool_2d(h)
-                if bn_key is not None:
-                    h = self._bn(bn_key, h)
+        blocks = TRUNK
+        if fast and tuple(h.shape[1:]) == SEGMENT_A_SHAPE and self._fused_trunk_on():
+            segment = trunk.fused_segment_reference if self.plain_ops else trunk.fused_segment
+            # conv3 (+bn5) / conv6 (+bn9) + pool, conv10 (+bn12) / conv13 + pool
+            for (k1, bn1, _), (k3, bn3, _), spec in ((TRUNK[0], TRUNK[1], trunk.SEGMENT_A),
+                                                     (TRUNK[2], TRUNK[3], trunk.SEGMENT_B)):
+                wa, ba = (t.detach() for t in self._folded(k1, bn1))
+                wb, bb = (t.detach() for t in self._folded(k3, bn3))
+                h = segment(h, wa, ba, wb, bb, spec)
+            blocks = TRUNK[4:]
+        for conv_key, bn_key, pooled in blocks:
+            if fast:
+                kernel, bias = self._folded(conv_key, bn_key)
+                # bias added after the conv's bf16 store, as the JAX trunk does
+                y = _conv_nhwc(h, kernel.to(dtype), None) + bias.to(dtype)
+                h = layers.mfm_pool_2d(y) if pooled else layers.max_feature_map(y)
+                continue
+            conv = self.m_transform[conv_key]
+            h = layers.max_feature_map(
+                _conv_nhwc(h, conv.weight.to(h.dtype), conv.bias.to(h.dtype), exact))
+            if pooled:
+                h = layers.max_pool_2d(h)
+            if bn_key is not None:
+                h = self._bn(bn_key, h)
         h = F.dropout(h, p=0.7, training=self.training)
 
         # (B, T', W', C) -> (B, T', C, W') -> (B, T', C * W'), which is the

@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -63,6 +64,12 @@ def build(name: str) -> Path:
         )
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return lib
+
+
+def build_all(names) -> None:
+    """Build several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

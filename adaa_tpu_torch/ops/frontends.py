@@ -7,17 +7,21 @@ Both map (B, 64600) -> (B, n_coeff, T) with T = 404 frames and
 differentiate with respect to the waveform (the attacks backpropagate
 through the frontend).
 
-``mel_spec`` and the opt-in fused LFCC kernel
-(``adaa_tpu/ops/pallas_lfcc.py``) are not ported yet; see ROADMAP.md.
+``lfcc`` takes the fused kernel (``ops/lfcc_fused.py``, the counterpart
+of ``adaa_tpu/ops/pallas_lfcc.py``) when it is switched on, as the JAX
+``lfcc`` does under ``ADAA_PALLAS_FRONTEND=1``. ``mfcc`` stays unfused,
+as in the JAX package. ``mel_spec`` is not ported yet; see ROADMAP.md.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, List
+import os
+from typing import Callable, List, Optional
 
 import torch
 
 from adaa_tpu_torch.ops import filterbanks as fb
+from adaa_tpu_torch.ops import lfcc_fused
 from adaa_tpu_torch.ops import stft as stft_ops
 from adaa_tpu_torch.ops.stft import device_constant
 
@@ -27,9 +31,28 @@ HOP_LENGTH = 160  # 10 ms
 N_FFT = 512
 
 
+def fused_frontend_on(fused: Optional[bool] = None) -> bool:
+    """The fused-LFCC switch: ``fused`` if given, else
+    ``ADAA_PALLAS_FRONTEND == "1"``, read per call as the JAX package does."""
+    return os.environ.get("ADAA_PALLAS_FRONTEND") == "1" if fused is None else fused
+
+
 def lfcc(x: torch.Tensor, n_lfcc: int = 80, n_filter: int = 128,
-         compute: str = "f32") -> torch.Tensor:
-    """(..., L) -> (..., n_lfcc, T). torchaudio.transforms.LFCC equivalent."""
+         compute: str = "f32", fused: Optional[bool] = None,
+         reference: bool = False) -> torch.Tensor:
+    """(..., L) -> (..., n_lfcc, T). torchaudio.transforms.LFCC equivalent.
+
+    With the fused switch on (``fused_frontend_on``), the default
+    coefficients and a 2-D 64,600-sample input, the forward is the fused
+    kernel in f32 whatever ``compute`` says (the JAX package's bf16 LCNN
+    gets an f32 frontend under its switch too); ``reference=True`` runs
+    that path's plain-torch version on any device. The gradient
+    recomputes through the unfused f32 path.
+    """
+    if (n_lfcc == lfcc_fused.N_CEP and n_filter == lfcc_fused.N_FILTER and x.dim() == 2
+            and x.shape[-1] == lfcc_fused.WAVE_LEN and fused_frontend_on(fused)):
+        return (lfcc_fused.cepstra_fused_reference if reference
+                else lfcc_fused.cepstra_fused)(x, "linear")
     spec = stft_ops.spectrogram(
         x, n_fft=N_FFT, hop_length=HOP_LENGTH, win_length=WIN_LENGTH,
         power=2.0, compute=compute,
@@ -84,13 +107,15 @@ def _banked_einsum(spec: torch.Tensor, filt: torch.Tensor, compute: str) -> torc
 
 
 def get_frontend(
-    frontends: List[str], compute: str = "f32"
+    frontends: List[str], compute: str = "f32", fused: Optional[bool] = None,
+    reference: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Dispatch mirroring ``adaa_tpu.ops.frontends.get_frontend``."""
+    """Dispatch mirroring ``adaa_tpu.ops.frontends.get_frontend``;
+    ``fused`` and ``reference`` reach ``lfcc`` only."""
     if "mfcc" in frontends:
         return functools.partial(mfcc, compute=compute)
     if "lfcc" in frontends:
-        return functools.partial(lfcc, compute=compute)
+        return functools.partial(lfcc, compute=compute, fused=fused, reference=reference)
     if "mel_spec" in frontends:
         raise NotImplementedError(
             "mel_spec is not ported to adaa_tpu_torch yet (ROADMAP.md, queue 1)"

@@ -2,10 +2,11 @@
 
 Run on the card from the repository root:
 
-    python -m adaa_tpu_torch.utils.profiling --out profile_pgd10.json
+    python -m adaa_tpu_torch.utils.profiling --out profile_pgd10.json [--fused]
 
 It warms up, then profiles one attacked batch of the main path (PGD-10
-on the bf16 LCNN+LFCC, ``adaa_tpu_torch.bench.setup``) and writes a
+on the bf16 LCNN+LFCC, ``adaa_tpu_torch.bench.setup``; its fused
+configuration with ``--fused``) and writes a
 JSON summary: without the profiler, the host time to enqueue one batch
 and its wall time; under the profiler, the batch's wall time (inflated
 by the profiler's own host cost), device busy time (the union of
@@ -46,10 +47,11 @@ def _busy_us(intervals: List[tuple]) -> float:
     return busy
 
 
-def profile_attack(batch: int = 256, seed: int = 0, top: int = 30) -> Dict[str, Any]:
+def profile_attack(batch: int = 256, seed: int = 0, top: int = 30,
+                   fused: bool = False) -> Dict[str, Any]:
     from adaa_tpu_torch import bench
 
-    model, attack, x, y, gen = bench.setup(batch, seed, "cuda")
+    model, attack, x, y, gen = bench.setup(batch, seed, "cuda", fused)
     for _ in range(2):
         attack(x, y, gen)
     torch.cuda.synchronize()
@@ -85,6 +87,7 @@ def profile_attack(batch: int = 256, seed: int = 0, top: int = 30) -> Dict[str, 
                    for k, v in by_kernel.items()), key=lambda r: -r["ms"])
     return {
         "batch": batch,
+        "fused": fused,
         "unprofiled_enqueue_ms": host_us / 1e3,
         "unprofiled_wall_ms": plain_wall_us / 1e3,
         "wall_ms": wall_us / 1e3,
@@ -101,14 +104,16 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--out", default="profile_pgd10.json")
+    parser.add_argument("--fused", action="store_true",
+                        help="the fused configuration (fused LFCC + fused trunk segments)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    result = {"card": card_line(), **profile_attack(args.batch)}
+    result = {"card": card_line(), **profile_attack(args.batch, fused=args.fused)}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
-    brief = {k: result[k] for k in ("card", "batch", "unprofiled_enqueue_ms",
+    brief = {k: result[k] for k in ("card", "batch", "fused", "unprofiled_enqueue_ms",
                                     "unprofiled_wall_ms", "wall_ms", "device_busy_ms",
                                     "device_idle_share", "kernel_launches")}
     print(json.dumps(brief))

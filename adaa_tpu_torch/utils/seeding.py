@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 
-def set_seed(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Generator:
+def set_seed(seed: int, device: Union[str, torch.device] = "cuda") -> torch.Generator:
+    """Seed the host RNGs; return a generator on ``device`` (the card by
+    default: pass ``"cpu"`` for a run on the CPU)."""
     random.seed(seed)
     np.random.seed(seed)
     os.environ["PYTHONHASHSEED"] = str(seed)

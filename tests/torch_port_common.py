@@ -9,6 +9,8 @@ from adaa_tpu_torch.models.weights import lcnn_state_dict_from_flax
 
 CFG_F32 = {"input_channels": 1, "frontend_algorithm": ["lfcc"]}
 CFG_BF16 = {**CFG_F32, "compute_dtype": "bfloat16"}
+# the fused configuration: fused LFCC kernel + fused trunk segments
+CFG_FUSED = {**CFG_BF16, "fused_frontend": True, "fused_trunk": True}
 
 
 def lcnn_variables(seed: int = 0):
