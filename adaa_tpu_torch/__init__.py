@@ -12,6 +12,10 @@ kernel is LCNN's fused first block (``ops/layer0.py`` +
 ``csrc/layer0.cu``). The fused configuration of the same model
 (``bench.setup(fused=True)``) adds the fused LFCC forward
 (``ops/lfcc_fused.py`` + ``csrc/lfcc.cu``) and the fused trunk segments
-(``ops/trunk.py`` + ``csrc/trunk.cu``). All are built for ``sm_90a`` at
+(``ops/trunk.py`` + ``csrc/trunk.cu``). RawNet3
+(``models/rawnet3.py``, PGD-10 at batch 64 through
+``bench.setup(model="rawnet3")``) adds the 1-D pool kernel
+(``ops/pool.py`` + ``csrc/pool.cu``) and the fused Bottle2neck kernels
+(``ops/b2n.py`` + ``csrc/b2n.cu``). All are built for ``sm_90a`` at
 first use.
 """

@@ -1,6 +1,6 @@
 """Detector factory (port of ``adaa_tpu/models/__init__.py``).
 
-Only LCNN is ported so far; SpecRNet and RawNet3 are in ROADMAP.md.
+LCNN and RawNet3 are ported; SpecRNet is in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -10,14 +10,18 @@ import torch
 from torch import nn
 
 from adaa_tpu_torch.models.lcnn import LCNN
+from adaa_tpu_torch.models.rawnet3 import RawNet3
 
 WAVE_LENGTH = 64_600  # canonical input length (reference base_dataset.py:27)
 
 
 def get_model(model_name: str, config: Dict[str, Any]) -> nn.Module:
     """Build a detector (uninitialised; see ``init_model``)."""
+    compute_dtype = torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else None
+    if model_name == "rawnet3":
+        return RawNet3(compute_dtype=compute_dtype, fused_pool=config.get("fused_pool"),
+                       fused_b2n=config.get("fused_b2n"))
     if model_name == "lcnn":
-        compute_dtype = torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else None
         return LCNN(
             input_channels=config.get("input_channels", 1),
             num_coefficients=config.get("num_coefficients", 80),
@@ -27,7 +31,7 @@ def get_model(model_name: str, config: Dict[str, Any]) -> nn.Module:
             fused_frontend=config.get("fused_frontend"),
             fused_trunk=config.get("fused_trunk"),
         )
-    if model_name in ("specrnet", "rawnet3"):
+    if model_name == "specrnet":
         raise NotImplementedError(
             f"'{model_name}' is not ported to adaa_tpu_torch yet (ROADMAP.md, queue 1)"
         )

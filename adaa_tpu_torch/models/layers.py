@@ -1,11 +1,13 @@
 """Shared building blocks with the JAX package's numerics.
 
-Port of the parts of ``adaa_tpu/models/layers.py`` that LCNN uses:
+Port of the parts of ``adaa_tpu/models/layers.py`` that LCNN and
+RawNet3 use:
 
 * the torch-default initialisers, drawing from an explicit
   ``torch.Generator``;
-* ``max_feature_map``, ``max_pool_2d`` and ``mfm_pool_2d`` on
-  channels-last tensors, as ``torch.autograd.Function``s with the
+* ``max_feature_map``, ``max_pool_1d``, ``max_pool_2d`` and
+  ``mfm_pool_2d`` on channels-last tensors, as
+  ``torch.autograd.Function``s with the
   equality-mask backward (the JAX default): every element equal to the
   max receives the whole cotangent. This is not torch's own max-pool
   backward, which routes to a single argmax;
@@ -128,6 +130,34 @@ class _MfmPool2d(torch.autograd.Function):
     def backward(ctx, g):
         x, y = ctx.saved_tensors
         return _eqmask_grad(x, y, g, 2, True)
+
+
+class _MaxPool1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, window):
+        b, t, c = x.shape
+        t2 = t // window
+        y = x[:, : t2 * window].reshape(b, t2, window, c).amax(dim=2)
+        ctx.save_for_backward(x, y)
+        ctx.window = window
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        b, t, c = x.shape
+        t2 = t // ctx.window
+        xw = x[:, : t2 * ctx.window].reshape(b, t2, ctx.window, c)
+        dx = torch.where(xw == y[:, :, None], g[:, :, None], 0.0).reshape(b, t2 * ctx.window, c)
+        if t2 * ctx.window < t:
+            dx = nn.functional.pad(dx, (0, 0, 0, t - t2 * ctx.window))
+        return dx.to(x.dtype), None
+
+
+def max_pool_1d(x: torch.Tensor, window: int) -> torch.Tensor:
+    """torch MaxPool1d(window) in floor mode on (B, T, C), with the
+    equality-mask backward; the dropped tail T mod window gets zeros."""
+    return _MaxPool1d.apply(x, window)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:

@@ -3,10 +3,12 @@
 Run on the card from the repository root:
 
     python -m adaa_tpu_torch.utils.profiling --out profile_pgd10.json [--fused]
+    python -m adaa_tpu_torch.utils.profiling --model rawnet3 [--config pool|b2n] --out ...
 
-It warms up, then profiles one attacked batch of the main path (PGD-10
-on the bf16 LCNN+LFCC, ``adaa_tpu_torch.bench.setup``; its fused
-configuration with ``--fused``) and writes a
+It warms up, then profiles one attacked batch of PGD-10
+(``adaa_tpu_torch.bench.setup``): on the bf16 LCNN+LFCC at batch 256
+(its fused configuration with ``--fused``), or on the bf16 RawNet3 at
+batch 64 (with the pool or the b2n kernel with ``--config``), and writes a
 JSON summary: without the profiler, the host time to enqueue one batch
 and its wall time; under the profiler, the batch's wall time (inflated
 by the profiler's own host cost), device busy time (the union of
@@ -21,7 +23,7 @@ import subprocess
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -47,11 +49,13 @@ def _busy_us(intervals: List[tuple]) -> float:
     return busy
 
 
-def profile_attack(batch: int = 256, seed: int = 0, top: int = 30,
-                   fused: bool = False) -> Dict[str, Any]:
+def profile_attack(batch: Optional[int] = None, seed: int = 0, top: int = 30,
+                   fused: bool = False, model: str = "lcnn",
+                   config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     from adaa_tpu_torch import bench
 
-    model, attack, x, y, gen = bench.setup(batch, seed, "cuda", fused)
+    _, attack, x, y, gen = bench.setup(batch, seed, "cuda", fused, model, config)
+    batch = x.shape[0]
     for _ in range(2):
         attack(x, y, gen)
     torch.cuda.synchronize()
@@ -86,8 +90,10 @@ def profile_attack(batch: int = 256, seed: int = 0, top: int = 30,
     kern = sorted(({"kernel": k[:160], "ms": v[0] / 1e3, "count": v[1]}
                    for k, v in by_kernel.items()), key=lambda r: -r["ms"])
     return {
+        "model": model,
         "batch": batch,
         "fused": fused,
+        "config": config,
         "unprofiled_enqueue_ms": host_us / 1e3,
         "unprofiled_wall_ms": plain_wall_us / 1e3,
         "wall_ms": wall_us / 1e3,
@@ -102,18 +108,30 @@ def profile_attack(batch: int = 256, seed: int = 0, top: int = 30,
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--batch", type=int, default=None,
+                        help="default: the model's batch (256 LCNN, 64 RawNet3)")
     parser.add_argument("--out", default="profile_pgd10.json")
+    parser.add_argument("--model", choices=("lcnn", "rawnet3"), default="lcnn")
     parser.add_argument("--fused", action="store_true",
-                        help="the fused configuration (fused LFCC + fused trunk segments)")
+                        help="LCNN's fused configuration (fused LFCC + fused trunk segments)")
+    parser.add_argument("--config", choices=("default", "pool", "b2n"), default="default",
+                        help="RawNet3's configuration: no kernel, the pool kernel or the b2n kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    result = {"card": card_line(), **profile_attack(args.batch, fused=args.fused)}
+    from adaa_tpu_torch import bench
+
+    config = None
+    if args.model == "rawnet3":
+        config = {"default": bench.RAWNET3_CONFIG, "pool": bench.RAWNET3_POOL_CONFIG,
+                  "b2n": bench.RAWNET3_B2N_CONFIG}[args.config]
+    result = {"card": card_line(),
+              **profile_attack(args.batch, fused=args.fused, model=args.model, config=config)}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
-    brief = {k: result[k] for k in ("card", "batch", "fused", "unprofiled_enqueue_ms",
+    brief = {k: result[k] for k in ("card", "model", "batch", "fused", "config",
+                                    "unprofiled_enqueue_ms",
                                     "unprofiled_wall_ms", "wall_ms", "device_busy_ms",
                                     "device_idle_share", "kernel_launches")}
     print(json.dumps(brief))

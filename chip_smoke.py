@@ -7,8 +7,8 @@ Each phase prints one JSON line, and any failed check raises, so the
 exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit;
-1. build the kernels from ``adaa_tpu_torch/csrc`` (one nvcc per source,
-   all at once; timed);
+1. build the five kernels from ``adaa_tpu_torch/csrc`` (one nvcc per
+   source, all at once; timed);
 2. the layer-0 kernel against its plain-torch twin at B=256 (bf16):
    forward outputs bit-equal at >= 99.9% and all within 1 bf16 ulp,
    winner index equal at >= 99.9%, dx relative L2 error < 1e-3; the
@@ -34,10 +34,24 @@ exit code is not 0:
    configuration, timed in this call;
 9. the f32 ``precision="highest"`` LCNN's input gradient at B=4 against
    the same gradient with TF32 off globally, cuDNN deterministic in both:
-   relative L2 <= 1e-6.
+   relative L2 <= 1e-6;
+10. the pool kernels against their plain version at RawNet3's pool shapes
+    (64, 6435, 1024) w=5 and (64, 1287, 1024) w=3: forward and dx
+    bit-equal; medians of the kernels, the plain version and
+    ``F.max_pool1d`` on the (B, C, T) view;
+11. the b2n kernels against their plain version at RawNet3's three block
+    shapes, B=64: y bit-equal >= 97%, y mean relative error <= 1e-4, dx
+    relative L2 <= 5e-3 (B2N_*); medians of both;
+12. the bf16 RawNet3 at B=64 x 64,600 in its pool and b2n configurations,
+    kernels against plain versions: logits within RAWNET3_LOGIT_ATOL;
+13. PGD-10 on RawNet3 at B=64 in the default, pool and b2n
+    configurations, checked as in phase 4, with the launch counts: no
+    kernel in the default; pool forward >= 10 and backward == 10 (no b2n)
+    in the pool configuration; b2n forward >= 30 and backward == 30 (no
+    pool) in the b2n configuration; then examples/s of all three.
 
-The last lines are the kernels' JSON summary, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON summary (all nine kernel entries),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -47,6 +61,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 B = 256
 EPS = 0.0005  # the registry's "PGD" eps
@@ -60,6 +75,16 @@ HIGHEST_GRAD_RTOL = 1e-6
 # another conv output; at B=256 (~33 M routed cotangents) a few dozen
 # such flips give ~1e-3 (measured 4.5e-4 to 1.05e-3 on an H100)
 TRUNK_DX_RTOL = 3e-3
+RB = 64  # RawNet3's batch: the JAX package's rawnet3:PGD record
+# b2n kernel vs plain: both sum the same exact bf16 products in f32 in other
+# orders, so an output near a bf16 rounding boundary can round the other way
+# (o and y), and a relu or routing decision near zero can flip; measured on an
+# H100 at B=2: y bit-equal 0.984-0.990, mean relative 2.3e-5 to 3.1e-5, dx
+# relative L2 1.3e-3 to 1.5e-3 (tests/test_torch_port_gpu.py). The JAX
+# package's own bands for its kernel against flax are 0.02 and 0.05.
+B2N_Y_BIT_EQUAL, B2N_Y_MEAN_REL, B2N_DX_REL_L2 = 0.97, 1e-4, 5e-3
+# kernel vs plain logits of the b2n configuration at B=64 (measured 1.5e-4)
+RAWNET3_LOGIT_ATOL = 5e-4
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -238,7 +263,7 @@ def phase6_trunk(trunk):
     return totals, bounds
 
 
-def logits_vs_plain(phase: int, model, x) -> None:
+def logits_vs_plain(phase: int, model, x, tol: float = LOGIT_ATOL) -> None:
     """Logits with the kernels against the plain versions of the fused ops."""
     with torch.no_grad():
         z_kernel = model(x)
@@ -249,10 +274,10 @@ def logits_vs_plain(phase: int, model, x) -> None:
     err = float((z_kernel - z_plain).abs().max())
     emit({"phase": phase, "shape": list(z_kernel.shape),
           "max_abs_logit": float(z_plain.abs().max()), "logit_max_abs_err": err,
-          "tol": LOGIT_ATOL})
-    check(tuple(z_kernel.shape) == (B, 1), f"logit shape {tuple(z_kernel.shape)}")
+          "tol": tol})
+    check(tuple(z_kernel.shape) == (x.shape[0], 1), f"logit shape {tuple(z_kernel.shape)}")
     check(bool(torch.isfinite(z_kernel).all()), "non-finite logits")
-    check(err <= LOGIT_ATOL, f"kernel/plain logits differ by {err}")
+    check(err <= tol, f"kernel/plain logits differ by {err}")
 
 
 def attack_checked(phase: int, attacks, main, counters) -> dict:
@@ -276,8 +301,156 @@ def attack_checked(phase: int, attacks, main, counters) -> dict:
     check(bool(torch.isfinite(adv).all()), "non-finite adversarial waves")
     check(linf <= EPS + 1e-6, f"outside the eps ball: {linf}")
     check(ce_adv >= ce_clean, f"CE fell: {ce_adv} < {ce_clean}")
+    return launches
+
+
+def check_layer0(launches: dict) -> None:
     check(launches["layer0"]["fwd"] >= 10 and launches["layer0"]["bwd"] == 10,
           f"layer-0 launches {launches}")
+
+
+def phase10_pool(pool):
+    """The pool kernels against their plain version at RawNet3's two pool
+    shapes: forward and dx bit-equal (first-max routing is deterministic)."""
+    rng = np.random.default_rng(10)
+    out = {"phase": 10}
+    main_shape = None
+    for name, (shape, w) in (("layer1_w5", ((RB, 6435, 1024), 5)),
+                             ("w3", ((RB, 1287, 1024), 3))):
+        x = randn(rng, shape, dtype=torch.bfloat16)
+        g = randn(rng, (shape[0], shape[1] // w, shape[2]), dtype=torch.bfloat16)
+        y_k, y_r = pool.kernel_fwd(x, w), pool.reference_fwd(x, w)
+        dx_k, dx_r = pool.kernel_bwd(x, g, w), pool.reference_bwd(x, g, w)
+        torch.cuda.synchronize()
+        xv = x.transpose(1, 2)  # the (B, C, T) view
+        res = {"fwd_equal": bool(torch.equal(y_k, y_r)), "dx_equal": bool(torch.equal(dx_k, dx_r)),
+               "fwd_max_abs_err": float((y_k.float() - y_r.float()).abs().max()),
+               "bwd_max_abs_err": float((dx_k.float() - dx_r.float()).abs().max()),
+               "fwd_ms": median_ms(lambda: pool.kernel_fwd(x, w)),
+               "fwd_plain_ms": median_ms(lambda: pool.reference_fwd(x, w)),
+               "fwd_library_ms": median_ms(lambda: F.max_pool1d(xv, w)),
+               "bwd_ms": median_ms(lambda: pool.kernel_bwd(x, g, w)),
+               "bwd_plain_ms": median_ms(lambda: pool.reference_bwd(x, g, w))}
+        n_x, n_y = x.numel(), g.numel()
+        # bytes: x, out / x, g, dx (bf16); operations: one f32 compare per
+        # input element (forward) and two (recomputed max, routing) backward
+        res["fwd_bound"] = bound(2 * (n_x + n_y), n_x, "f32")
+        res["bwd_bound"] = bound(2 * (2 * n_x + n_y), 2 * n_x, "f32")
+        out[name] = res
+        check(res["fwd_equal"] and res["dx_equal"], f"pool {name}: kernel != plain")
+        if main_shape is None:
+            main_shape = res
+        del x, g, y_k, y_r, dx_k, dx_r
+    emit(out)
+    return main_shape
+
+
+def b2n_block(rawnet3, cin: int, dilation: int, pool_size: int, seed: int):
+    """A RawNet3 block with random weights, biases and BN statistics."""
+    blk = rawnet3.Bottle2neck(cin, 1024, dilation, pool_size)
+    blk.reset_parameters(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for bn in (blk.bn1, blk.bn3, *blk.bns):
+            n = bn.num_features
+            bn.running_mean.copy_(torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32)))
+            bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)))
+            bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+            bn.bias.copy_(torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32)))
+        for conv in (blk.conv1, blk.conv3, *blk.convs):
+            conv.bias.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, conv.bias.shape).astype(np.float32)))
+    return blk.to("cuda").eval()
+
+
+def phase11_b2n(b2n, rawnet3):
+    """The b2n kernels against their plain version at RawNet3's three block
+    shapes, B=64; times and bounds summed over the blocks (one forward or
+    one backward of the model's trunk)."""
+    out = {"phase": 11, "batch": RB, "bands": {"y_bit_equal": B2N_Y_BIT_EQUAL,
+                                               "y_mean_rel": B2N_Y_MEAN_REL,
+                                               "dx_rel_l2": B2N_DX_REL_L2}}
+    tot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "bwd_ms", "bwd_plain_ms", "fwd_err",
+                            "bwd_err", "fwd_bytes", "fwd_flops", "bwd_bytes", "bwd_flops")}
+    rng = np.random.default_rng(11)
+    for name, (cin, d, pool_size, t) in (("layer1", (256, 2, 5, 6435)),
+                                         ("layer2", (1024, 3, 3, 1287)),
+                                         ("layer3", (1024, 4, 0, 429))):
+        p = b2n_block(rawnet3, cin, d, pool_size, 60 + d).folded()
+        x = randn(rng, (RB, t, cin), 0.3, torch.bfloat16)
+        dy = randn(rng, (RB, t, 1024), dtype=torch.bfloat16)
+        y_k, o_k, masks = b2n.kernel_fwd(x, p, d)
+        dx_k = b2n.kernel_bwd(dy, o_k, masks, p, d, cin)
+        y_r, o_r = b2n.reference_fwd(x, p, d)
+        dx_r = b2n.reference_bwd(x, dy, o_r, p, d)
+        torch.cuda.synchronize()
+        yk, yr, dk, dr = y_k.float(), y_r.float(), dx_k.float(), dx_r.float()
+        res = {"y_bit_equal": float((y_k == y_r).float().mean()),
+               "o_bit_equal": float((o_k == o_r).float().mean()),
+               "y_mean_rel": float((yk - yr).abs().mean() / yr.abs().mean()),
+               "y_max_abs_err": float((yk - yr).abs().max()), "y_max_abs_ref": float(yr.abs().max()),
+               "dx_rel_l2": float((dk - dr).norm() / dr.norm()),
+               "dx_max_abs_err": float((dk - dr).abs().max())}
+        del yk, yr, dk, dr, y_r, o_r, dx_r, dx_k
+        res.update({
+            "fwd_ms": median_ms(lambda: b2n.kernel_fwd(x, p, d), reps=5, warmup=1),
+            "fwd_plain_ms": median_ms(lambda: b2n.reference_fwd(x, p, d), reps=3, warmup=1),
+            "bwd_ms": median_ms(lambda: b2n.kernel_bwd(dy, o_k, masks, p, d, cin), reps=5,
+                                warmup=1),
+            "bwd_plain_ms": median_ms(lambda: b2n.reference_bwd(x, dy, o_k, p, d), reps=3,
+                                      warmup=1)})
+        out[name] = res
+        check(res["y_bit_equal"] >= B2N_Y_BIT_EQUAL, f"b2n {name}: y bit-equal {res['y_bit_equal']}")
+        check(res["y_mean_rel"] <= B2N_Y_MEAN_REL, f"b2n {name}: y mean rel {res['y_mean_rel']}")
+        check(res["dx_rel_l2"] <= B2N_DX_REL_L2, f"b2n {name}: dx rel L2 {res['dx_rel_l2']}")
+        for k in ("fwd_ms", "fwd_plain_ms", "bwd_ms", "bwd_plain_ms"):
+            tot[k] += res[k]
+        tot["fwd_err"] = max(tot["fwd_err"], res["y_max_abs_err"])
+        tot["bwd_err"] = max(tot["bwd_err"], res["dx_max_abs_err"])
+        # products: conv1, the chain's 21 taps of 128 x 128, conv3 and the
+        # residual projection per row; the backward needs the same products
+        # transposed (the forward's masks are kept, nothing is recomputed)
+        rows = RB * t
+        per_row = cin * 1024 + 21 * 128 * 128 + 1024 * 1024 + (cin * 1024 if cin != 1024 else 0)
+        # bytes: x, the weights, y and o / dy, o, the masks, the weights, dx
+        w_bytes = 2 * per_row
+        tot["fwd_bytes"] += 2 * rows * cin + w_bytes + 2 * 2 * rows * 1024
+        tot["fwd_flops"] += 2 * rows * per_row
+        tot["bwd_bytes"] += 2 * 2 * rows * 1024 + 4 * rows * (32 + 28) + w_bytes + 2 * rows * cin
+        tot["bwd_flops"] += 2 * rows * per_row
+        del x, dy, y_k, o_k, masks
+        torch.cuda.empty_cache()
+    emit(out)
+    bounds = {"fwd": bound(tot["fwd_bytes"], tot["fwd_flops"], "bf16"),
+              "bwd": bound(tot["bwd_bytes"], tot["bwd_flops"], "bf16")}
+    return tot, bounds
+
+
+def rawnet3_phases(attacks, bench, pool, b2n, card) -> dict:
+    """Phases 12-13: RawNet3 logits with the kernels against the plain
+    versions (pool and b2n configurations), then PGD-10 at B=64 in all
+    three configurations with their launch counts, and examples/s."""
+    counters = {"pool": pool.LAUNCHES, "b2n": b2n.LAUNCHES}
+    configs = {"default": bench.RAWNET3_CONFIG, "pool": bench.RAWNET3_POOL_CONFIG,
+               "b2n": bench.RAWNET3_B2N_CONFIG}
+    launches = {}
+    for name, config in configs.items():
+        path = bench.setup(RB, seed=0, device="cuda", model="rawnet3", config=config)
+        if name != "default":
+            logits_vs_plain(12, path.model, path.x, RAWNET3_LOGIT_ATOL)
+        got = attack_checked(13, attacks, path, counters)
+        launches[name] = got
+        want = {"default": got["pool"]["fwd"] == 0 and got["b2n"]["fwd"] == 0,
+                "pool": (got["pool"]["fwd"] >= 10 and got["pool"]["bwd"] == 10
+                         and got["b2n"]["fwd"] == 0),
+                "b2n": (got["b2n"]["fwd"] >= 30 and got["b2n"]["bwd"] == 30
+                        and got["pool"]["fwd"] == 0)}[name]
+        check(want, f"RawNet3 {name} configuration launches {got}")
+        del path
+        torch.cuda.empty_cache()
+    eps = {name: bench.measure_torch(batch=RB, iters=3, warmup=1, model="rawnet3", config=config)
+           for name, config in configs.items()}
+    emit({"phase": 13, "metric": "adv_examples_per_sec_pgd10_rawnet3", **eps, "batch": RB,
+          "card": card})
     return launches
 
 
@@ -318,7 +491,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     from adaa_tpu_torch import attacks, bench, models
-    from adaa_tpu_torch.ops import _build, layer0, lfcc_fused, trunk
+    from adaa_tpu_torch.models import rawnet3
+    from adaa_tpu_torch.ops import _build, b2n, layer0, lfcc_fused, pool, trunk
     from adaa_tpu_torch.utils import set_seed
     from adaa_tpu_torch.utils.profiling import card_line
 
@@ -326,10 +500,11 @@ def main() -> None:
     print(card, flush=True)
     emit({"phase": 0, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    sources = ("layer0", "lfcc", "trunk")
+    sources = ("layer0", "lfcc", "trunk", "pool", "b2n")
     t0 = time.perf_counter()
     _build.build_all(sources)
-    layer0._library(), lfcc_fused._library(), trunk._library()
+    for op in (layer0, lfcc_fused, trunk, pool, b2n):
+        op._library()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln] for name in sources}
@@ -341,6 +516,7 @@ def main() -> None:
     logits_vs_plain(3, main_path.model, main_path.x)
     counters = {"layer0": layer0.LAUNCHES, "lfcc": lfcc_fused.LAUNCHES, "trunk": trunk.LAUNCHES}
     default_launches = attack_checked(4, attacks, main_path, counters)
+    check_layer0(default_launches)
     check(default_launches["lfcc"]["fwd"] == 0 and default_launches["trunk"]["fwd"] == 0,
           f"the default path launched fused kernels: {default_launches}")
     eps_per_s = bench.measure_torch(batch=B, iters=5, warmup=2)
@@ -354,6 +530,7 @@ def main() -> None:
     fused_path = bench.setup(B, seed=0, device="cuda", fused=True)
     logits_vs_plain(7, fused_path.model, fused_path.x)
     fused_launches = attack_checked(8, attacks, fused_path, counters)
+    check_layer0(fused_launches)
     check(fused_launches["lfcc"]["fwd"] >= 10, f"lfcc launches {fused_launches}")
     check(fused_launches["trunk"]["fwd"] >= 20 and fused_launches["trunk"]["bwd"] == 20,
           f"trunk launches {fused_launches}")
@@ -364,13 +541,19 @@ def main() -> None:
           "fused": eps_fused, "default": eps_default, "batch": B, "card": card})
 
     phase9_highest_gradient(attacks, models, set_seed)
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, b):
+    pool_main = phase10_pool(pool)
+    b2n_tot, b2n_bounds = phase11_b2n(b2n, rawnet3)
+    r3_launches = rawnet3_phases(attacks, bench, pool, b2n, card)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, b, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": library_ms}
 
     l0_src, trunk_src = "adaa_tpu_torch/csrc/layer0.cu", "adaa_tpu_torch/csrc/trunk.cu"
+    pool_src, b2n_src = "adaa_tpu_torch/csrc/pool.cu", "adaa_tpu_torch/csrc/b2n.cu"
     emit({"kernels": [
         entry("layer0_fwd", l0_src, "adaa_tpu/ops/pallas_layer0.py:160",
               default_launches["layer0"]["fwd"], l0_fwd_err, l0_times["fwd_ms"],
@@ -387,6 +570,21 @@ def main() -> None:
         entry("trunk_bwd", trunk_src, "adaa_tpu/ops/pallas_trunk.py:172",
               fused_launches["trunk"]["bwd"], trunk_tot["bwd_err"], trunk_tot["bwd_ms"],
               trunk_tot["bwd_plain_ms"], trunk_bounds["bwd"]),
+        # pool: layer 1's (64, 6435, 1024) w=5 pool, the one on the path
+        entry("pool_fwd", pool_src, "adaa_tpu/ops/pallas_pool.py:66",
+              r3_launches["pool"]["pool"]["fwd"], pool_main["fwd_max_abs_err"],
+              pool_main["fwd_ms"], pool_main["fwd_plain_ms"], pool_main["fwd_bound"],
+              pool_main["fwd_library_ms"]),
+        entry("pool_bwd", pool_src, "adaa_tpu/ops/pallas_pool.py:73",
+              r3_launches["pool"]["pool"]["bwd"], pool_main["bwd_max_abs_err"],
+              pool_main["bwd_ms"], pool_main["bwd_plain_ms"], pool_main["bwd_bound"]),
+        # b2n times and bounds: layers 1 + 2 + 3, one forward of the model
+        entry("b2n_fwd", b2n_src, "adaa_tpu/ops/pallas_b2n.py:179",
+              r3_launches["b2n"]["b2n"]["fwd"], b2n_tot["fwd_err"], b2n_tot["fwd_ms"],
+              b2n_tot["fwd_plain_ms"], b2n_bounds["fwd"]),
+        entry("b2n_bwd", b2n_src, "adaa_tpu/ops/pallas_b2n.py:211",
+              r3_launches["b2n"]["b2n"]["bwd"], b2n_tot["bwd_err"], b2n_tot["bwd_ms"],
+              b2n_tot["bwd_plain_ms"], b2n_bounds["bwd"]),
     ]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -181,7 +181,9 @@ def test_package_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(adaa_tpu_torch.__path__, 'adaa_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in ('jax', 'flax', 'adaa_tpu', 'triton') if m in sys.modules]\n"
-        "assert len(mods) >= 14 and not bad, (mods, bad)\n"
+        "need = {'adaa_tpu_torch.models.rawnet3', 'adaa_tpu_torch.ops.sinc_conv',\n"
+        "        'adaa_tpu_torch.ops.pool', 'adaa_tpu_torch.ops.b2n'}\n"
+        "assert len(mods) >= 18 and need <= set(mods) and not bad, (mods, bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -1,7 +1,8 @@
 """The CUDA kernels vs their plain-torch versions, on a CUDA card.
 
 Repeats chip_smoke.py phases 2, 5, 6 and 9 (B=256) and small batches,
-and checks that the wrappers launch the kernels for CUDA tensors. It
+phases 10-11 (the pool and b2n kernels) at small batches, and checks
+that the wrappers launch the kernels for CUDA tensors. It
 imports neither jax nor adaa_tpu, so it runs on the card with
 
     python -m pytest --noconftest tests/test_torch_port_gpu.py -q
@@ -19,17 +20,26 @@ products in f32 in other orders:
   B=256 (measured 4.5e-4 to 1.05e-3);
 * the f32-highest LCNN's input gradient with default TF32 flags vs TF32
   off globally, cuDNN deterministic in both: relative L2 <= 1e-6 (its
-  convs turn TF32 off themselves, forward and backward).
+  convs turn TF32 off themselves, forward and backward);
+* pool: forward and dx bit-equal (first-max routing is deterministic);
+* b2n: y >= 97% bit-equal, y mean relative error <= 1e-4, dx relative
+  L2 <= 5e-3 (measured on an H100: 98.4-99.2%, <= 3.4e-5 and <= 1.6e-3
+  at B=2 and B=64): an output near a bf16 rounding boundary, or a relu
+  decision near zero, can go the other way in another summation order.
 """
 import numpy as np
 import pytest
 import torch
 
 from adaa_tpu_torch import attacks, models
-from adaa_tpu_torch.ops import layer0, lfcc_fused, trunk
+from adaa_tpu_torch.models.rawnet3 import Bottle2neck
+from adaa_tpu_torch.ops import b2n, layer0, lfcc_fused, pool, trunk
 from adaa_tpu_torch.utils import set_seed
 
 torch.set_num_threads(2)
+
+# b2n kernel vs plain (see the module docstring)
+B2N_Y_BIT_EQUAL, B2N_Y_MEAN_REL, B2N_DX_REL_L2 = 0.97, 1e-4, 5e-3
 
 
 def _data(seed: int, b: int):
@@ -196,3 +206,100 @@ def test_highest_precision_gradient_ignores_tf32(cuda):
         torch.backends.cudnn.deterministic = deterministic
     rel = float((g_default - g_ieee).norm() / g_ieee.norm())
     assert rel <= 1e-6, rel
+
+
+# --------------------------------------------------------------------------
+# RawNet3: the pool and b2n kernels
+# --------------------------------------------------------------------------
+
+def _bf16_ties(seed: int, shape) -> torch.Tensor:
+    """bf16 data on a coarse grid, so windows hold exact ties."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-4, 5, shape).astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window", [((3, 37, 1024), 5), ((2, 31, 1024), 3),
+                                          ((2, 13, 20), 4), ((1, 5, 8), 5)])
+def test_pool_kernels_match_plain(cuda, shape, window):
+    """chip_smoke.py's pool phase at small shapes, with ties, tails and a
+    channel count off the 16-byte path: forward and dx bit-equal."""
+    for x in (_randn(shape[1], shape).to(torch.bfloat16), _bf16_ties(shape[1], shape)):
+        x = x.to(cuda)
+        g = _randn(7, (shape[0], shape[1] // window, shape[2])).to(cuda, torch.bfloat16)
+        torch.testing.assert_close(pool.kernel_fwd(x, window), pool.reference_fwd(x, window),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(pool.kernel_bwd(x, g, window),
+                                   pool.reference_bwd(x, g, window), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_pool_wrapper_launches_kernels(cuda):
+    x = _randn(3, (2, 40, 1024)).to(cuda, torch.bfloat16).requires_grad_(True)
+    before = dict(pool.LAUNCHES)
+    y = pool.max_pool_1d(x, 5)
+    (dx,) = torch.autograd.grad(y.float().sum(), x)
+    torch.cuda.synchronize()
+    assert pool.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert int((dx != 0).sum()) == y.numel()  # one slot per window
+
+
+def b2n_block(cin: int, dilation: int, pool_size: int, seed: int, device) -> torch.nn.Module:
+    """A RawNet3 block with random weights, biases and BN statistics."""
+    blk = Bottle2neck(cin, 1024, dilation, pool_size)
+    blk.reset_parameters(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for bn in (blk.bn1, blk.bn3, *blk.bns):
+            n = bn.num_features
+            bn.running_mean.copy_(torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32)))
+            bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)))
+            bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+            bn.bias.copy_(torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32)))
+        for conv in (blk.conv1, blk.conv3, *blk.convs):
+            conv.bias.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, conv.bias.shape).astype(np.float32)))
+    return blk.to(device).eval()
+
+
+B2N_CASES = [(256, 2, 5), (1024, 3, 3), (1024, 4, 0)]  # RawNet3's layers 1, 2, 3
+
+
+def b2n_compare(x, dy, p, dilation):
+    """Kernel vs plain on one input: (y bit-equal share, y mean relative
+    error, dx relative L2)."""
+    y_k, o_k, masks = b2n.kernel_fwd(x, p, dilation)
+    y_r, o_r = b2n.reference_fwd(x, p, dilation)
+    dx_k = b2n.kernel_bwd(dy, o_k, masks, p, dilation, x.shape[2])
+    dx_r = b2n.reference_bwd(x, dy, o_r, p, dilation)
+    torch.cuda.synchronize()
+    yk, yr = y_k.float(), y_r.float()
+    return (float((y_k == y_r).float().mean()),
+            float((yk - yr).abs().mean() / yr.abs().mean()),
+            float((dx_k.float() - dx_r.float()).norm() / dx_r.float().norm()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,dilation,pool_size", B2N_CASES)
+@pytest.mark.parametrize("t", [480, 1287])
+def test_b2n_kernels_match_plain(cuda, cin, dilation, pool_size, t):
+    """chip_smoke.py's b2n phase at B=2, several time tiles and both edges."""
+    blk = b2n_block(cin, dilation, pool_size, 40 + dilation, cuda)
+    x = (_randn(t, (2, t, cin)) * 0.3).to(cuda, torch.bfloat16)
+    dy = _randn(t + 1, (2, t, 1024)).to(cuda, torch.bfloat16)
+    y_eq, y_rel, dx_rel = b2n_compare(x, dy, blk.folded(), dilation)
+    assert y_eq >= B2N_Y_BIT_EQUAL and y_rel <= B2N_Y_MEAN_REL and dx_rel <= B2N_DX_REL_L2
+
+
+@pytest.mark.gpu
+def test_b2n_wrapper_launches_kernels(cuda):
+    blk = b2n_block(256, 2, 5, 50, cuda)
+    p = blk.folded()
+    x = (_randn(51, (2, 480, 256)) * 0.3).to(cuda, torch.bfloat16).requires_grad_(True)
+    before = dict(b2n.LAUNCHES)
+    out = b2n.fused_bottle2neck(x, p, 2, 5)
+    (dx,) = torch.autograd.grad(out.float().sum(), x)
+    ref = b2n.fused_bottle2neck_reference(x.detach(), p, 2, 5)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 96, 1024) and dx.shape == x.shape and bool(torch.isfinite(dx).all())
+    assert float((out == ref).float().mean()) >= B2N_Y_BIT_EQUAL
+    assert b2n.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
