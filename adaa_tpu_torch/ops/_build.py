@@ -3,7 +3,8 @@
 Each source is a file with a plain C interface (no PyTorch headers), so
 a build takes seconds. It is compiled for ``sm_90a`` (Hopper) into
 ``adaa_tpu_torch/_build/lib<name>.so`` at first use, and again whenever
-the source is newer than the library. Nothing is built when the package
+the source or any header beside it (``csrc/*.cuh``) is newer than the
+library. Nothing is built when the package
 is imported: the CPU tests import every module on machines without
 ``nvcc``.
 """
@@ -42,21 +43,30 @@ def nvcc_path() -> str:
     return str(path)
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library is up to date.
+def stale(lib: Path, src: Path) -> bool:
+    """Whether ``lib`` is missing or older than ``src`` or a header
+    (``*.cuh``) in ``src``'s directory, which every source may include."""
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *src.parent.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
+
+
+def build(name: str, src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``<src_dir>/<name>.cu`` unless the library is up to date.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside the library as ``lib<name>.log``.
     """
-    src = SRC_DIR / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    src = src_dir / f"{name}.cu"
+    lib = build_dir / f"lib{name}.so"
+    if not stale(lib, src):
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = build_dir / f"lib{name}.{os.getpid()}.so"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"lib{name}.log").write_text(proc.stdout + proc.stderr)
+    (build_dir / f"lib{name}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(

@@ -3,9 +3,14 @@
 Replaces the TPU kernel ``adaa_tpu/ops/pallas_b2n.py``
 (``fused_bottle2neck`` -> ``_fwd_call``/``_fwd_kernel``,
 ``_bwd_call``/``_bwd_kernel``) with CUDA C++ kernels for Hopper
-(``adaa_tpu_torch/csrc/b2n.cu``, built by ``ops/_build.py``). The CUDA
-source's header says what bounds them on an H100 and how this first
-design deals with that.
+(``adaa_tpu_torch/csrc/b2n.cu`` with ``csrc/hopper.cuh``, built by
+``ops/_build.py``): wgmma + TMA tile GEMMs and a chain kernel that keeps
+a level's taps in shared memory. The CUDA source's header says what
+bounds them on an H100 and how the design deals with that. This module
+decides what the kernels take and checks: the weights packed as their
+B operands (``packed_weights``), the chain's regions (``chain_plan``),
+the persistent GEMMs' tiles, rings and shared memory (``gemm_plan``,
+``gemm_tiles``), passed to the C side as ``fwd_plan`` / ``bwd_plan``.
 
 What it computes, with the JAX kernel's rounding points (BNs folded to
 ``relu(z + b) * s + t`` by the caller, ``B2NParams``):
@@ -33,7 +38,7 @@ the plain-torch version only for a CPU tensor; a CUDA tensor never
 falls back. ``fused_bottle2neck_reference`` is the plain version
 itself, called explicitly to check the kernels. ``LAUNCHES`` counts
 launches of the forward and of the backward (each one call of the C
-side, which runs three kernels in order).
+side, which runs three kernels in order: a GEMM, the chain, a GEMM).
 """
 from __future__ import annotations
 
@@ -99,20 +104,155 @@ def _validate(x: torch.Tensor, p: B2NParams, dilation: int, pool: int) -> None:
 
 
 # --------------------------------------------------------------------------
+# Kernel layouts and plans: csrc/b2n.cu takes what these give it, and
+# checks it against its own constants
+# --------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448  # the shared memory one Hopper block may use
+SMEM_ALIGN = 1024  # the 128-byte swizzle's period: the C side aligns its base
+GEMM_BM = GEMM_BN = 128  # output tile
+GEMM_BK = 64  # one swizzled 128-byte row of bf16
+BOX_BYTES = 128 * GEMM_BK * 2  # one 128 x 64 TMA box
+GEMM_STAGING = 2 * 32 * 1024  # output staging: 64 x 128 f32 per consumer warpgroup
+DQ_STAGING = GEMM_STAGING // 2  # the dq form's kernel stages its f32 output in two parts
+BARRIER_BYTES = 16  # two mbarriers: a GEMM ring slot's full and empty; the chain's one
+
+CHAIN_REGION = 256  # rows a chain block holds: central rows and two halos
+CHAIN_PAD = 4  # zero rows above and below the region (>= the largest dilation)
+CHAIN_LDS = WIDTH + 8  # the region's bf16 row pitch: 272 bytes, ldmatrix without conflicts
+CHAIN_TAP_SLOTS = 3  # one level's 128 x 128 taps (32 KB each)
+TAP_BYTES = 2 * BOX_BYTES
+
+
+class GemmPlan(NamedTuple):
+    """A persistent tile GEMM: ``grid`` blocks walk the ``m_tiles x n_tiles``
+    output tiles (``gemm_tiles``) through a ring of ``stages`` slots."""
+
+    m_tiles: int
+    n_tiles: int
+    grid: int
+    stages: int
+    smem_bytes: int
+
+
+def gemm_plan(m: int, n: int, dq: bool, sms: int) -> GemmPlan:
+    """The plan of one (m, K) x (K, n) product. A ring slot holds a 128 x 64
+    box of A and of B^T, and for the dq form (``dq``) a box of o beside
+    dy's; as many slots as fit beside the output staging (half as much for
+    the dq form)."""
+    if n % GEMM_BN:
+        raise ValueError(f"N={n} is not a multiple of {GEMM_BN}")
+    stage = (3 if dq else 2) * BOX_BYTES
+    staging = DQ_STAGING if dq else GEMM_STAGING
+    stages = (SMEM_LIMIT - SMEM_ALIGN - staging) // (stage + BARRIER_BYTES)
+    m_tiles, n_tiles = -(-m // GEMM_BM), n // GEMM_BN
+    smem = stages * (stage + BARRIER_BYTES) + staging + SMEM_ALIGN
+    return GemmPlan(m_tiles, n_tiles, min(m_tiles * n_tiles, sms), stages, smem)
+
+
+def gemm_tiles(plan: GemmPlan):
+    """The (m_tile, n_tile) sequence of each block, as the kernel walks it:
+    block b takes tiles b, b + grid, ..., N fastest, so the blocks in flight
+    share a few A row-tiles and the whole weight in L2."""
+    total = plan.m_tiles * plan.n_tiles
+    return [[divmod(i, plan.n_tiles) for i in range(b, total, plan.grid)]
+            for b in range(plan.grid)]
+
+
+class ChainPlan(NamedTuple):
+    """The chain kernel's regions: block (i, b) holds rows
+    [i * central - halo, + region) of sequence b and writes the central ones."""
+
+    region: int
+    halo: int
+    central: int
+    regions: int
+    smem_bytes: int
+
+
+def chain_plan(dilation: int, t: int) -> ChainPlan:
+    """A halo of exactly 7 d rows each side: after the 7 levels, the rows a
+    halo's far edge got wrong (its taps read the zero pad) reach no
+    central row."""
+    if not 1 <= dilation <= CHAIN_PAD:
+        raise ValueError(f"the chain kernel takes dilations 1..{CHAIN_PAD}, got {dilation}")
+    halo = NUMS * dilation
+    central = CHAIN_REGION - 2 * halo
+    smem = (CHAIN_TAP_SLOTS * TAP_BYTES + BARRIER_BYTES
+            + (CHAIN_REGION + 2 * CHAIN_PAD) * CHAIN_LDS * 2 + SMEM_ALIGN)
+    return ChainPlan(CHAIN_REGION, halo, central, -(-t // central), smem)
+
+
+def chain_regions(plan: ChainPlan, t: int):
+    """(first region row, first central row, end of the central rows) of
+    each region of a sequence of length t."""
+    return [(i * plan.central - plan.halo, i * plan.central, min((i + 1) * plan.central, t))
+            for i in range(plan.regions)]
+
+
+def fwd_plan(batch: int, t: int, cin: int, dilation: int, sms: int) -> Tuple[int, ...]:
+    """The forward's 14 plan ints: conv1's GEMM, the chain, conv3's GEMM."""
+    m = batch * t
+    c = chain_plan(dilation, t)
+    return (*gemm_plan(m, PLANES, False, sms), c.regions, c.halo, c.central, c.smem_bytes,
+            *gemm_plan(m, PLANES, False, sms))
+
+
+def bwd_plan(batch: int, t: int, cin: int, dilation: int, sms: int) -> Tuple[int, ...]:
+    """The backward's 14 plan ints: dq W3^T's GEMM, the descent, dx's GEMM."""
+    m = batch * t
+    c = chain_plan(dilation, t)
+    return (*gemm_plan(m, PLANES, True, sms), c.regions, c.halo, c.central, c.smem_bytes,
+            *gemm_plan(m, cin, False, sms))
+
+
+def transposed_chain_weights(wc: torch.Tensor) -> torch.Tensor:
+    """(21 * 128, 128) -> the same blocks, each transposed."""
+    return wc.reshape(3 * NUMS, WIDTH, WIDTH).transpose(1, 2).reshape(-1, WIDTH).contiguous()
+
+
+def packed_weights(p: B2NParams, backward: bool) -> dict:
+    """The weights as the kernels' B operands take them: B^T, (N, K) with K
+    contiguous. The forward's products x W1, cat W3, x Wr and the chain's
+    taps take the transposes; the backward's dq W3^T, dz1 W1^T, dy Wr^T and
+    the transposed taps take the weights as they are stored."""
+    if backward:
+        packed = {"w3": p.w3, "wc": p.wc, "w1": p.w1, "wr": p.wr}
+    else:
+        packed = {"w1t": p.w1.t(), "wct": transposed_chain_weights(p.wc), "w3t": p.w3.t(),
+                  "wrt": None if p.wr is None else p.wr.t()}
+    return {k: _bf(v) for k, v in packed.items()}
+
+
+# --------------------------------------------------------------------------
 # CUDA kernels
 # --------------------------------------------------------------------------
+
+_PTR, _I32, _PLAN = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+# the C functions' parameters: pointers, batch t cin dilation, the plan, the
+# device, the stream
+ARGTYPES = {"b2n_fwd": [_PTR] * 20 + [_I32] * 4 + [_PLAN, _I32, _PTR],
+            "b2n_bwd": [_PTR] * 15 + [_I32] * 4 + [_PLAN, _I32, _PTR]}
+
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("b2n")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.b2n_fwd.argtypes = [ptr] * 20 + [i32] * 5 + [ptr]
-    lib.b2n_fwd.restype = i32
-    lib.b2n_bwd.argtypes = [ptr] * 15 + [i32] * 5 + [ptr]
-    lib.b2n_bwd.restype = i32
-    lib.b2n_error_string.argtypes = [i32]
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I32
+    lib.b2n_error_string.argtypes = [_I32]
     lib.b2n_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_array(plan: Tuple[int, ...]):
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -144,14 +284,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def transposed_chain_weights(wc: torch.Tensor) -> torch.Tensor:
-    """(21 * 128, 128) -> the same blocks, each transposed (the descent's taps)."""
-    return wc.reshape(3 * NUMS, WIDTH, WIDTH).transpose(1, 2).reshape(-1, WIDTH).contiguous()
-
-
 def kernel_fwd(x: torch.Tensor, p: B2NParams, dilation: int
                ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Launch the forward: x (B, T, Cin) -> (y, o, (conv1 mask bits, chain mask bits))."""
+    """Launch the forward: x (B, T, Cin) -> (y, o, masks): the relu masks of
+    conv1 and the chain as bits, which the backward takes with o."""
     b, t, cin = x.shape
     _kernel_args(x, cin, dilation)
     rows = b * t
@@ -161,15 +297,18 @@ def kernel_fwd(x: torch.Tensor, p: B2NParams, dilation: int
     cat = torch.empty((rows, PLANES), dtype=torch.bfloat16, device=dev)  # scratch
     y = torch.empty((b, t, PLANES), dtype=torch.bfloat16, device=dev)
     o = torch.empty_like(y)
-    mask1 = torch.empty((rows, MASK1_WORDS), dtype=torch.int32, device=dev)
-    cmask = torch.empty((rows, CMASK_WORDS), dtype=torch.int32, device=dev)
-    w = [_bf(p.w1), _f32(p.b1), _f32(p.s1), _f32(p.t1), _bf(p.wc), _f32(p.bc), _f32(p.sc),
-         _f32(p.tc), _bf(p.w3), _f32(p.b3), _f32(p.s3), _f32(p.t3), _bf(p.wr)]
+    # relu masks as bit words, word-major: word w of row g at [w, g]
+    mask1 = torch.empty((MASK1_WORDS, rows), dtype=torch.int32, device=dev)
+    cmask = torch.empty((CMASK_WORDS, rows), dtype=torch.int32, device=dev)
+    wp = packed_weights(p, backward=False)
+    w = [wp["w1t"], _f32(p.b1), _f32(p.s1), _f32(p.t1), wp["wct"], _f32(p.bc), _f32(p.sc),
+         _f32(p.tc), wp["w3t"], _f32(p.b3), _f32(p.s3), _f32(p.t3), wp["wrt"]]
+    plan = _plan_array(fwd_plan(b, t, cin, dilation, _sms(dev.index)))
     lib = _library()
     with torch.cuda.device(dev):  # the C side selects the same device
         err = lib.b2n_fwd(xb.data_ptr(), *[_ptr(a) for a in w], h.data_ptr(), cat.data_ptr(),
                           y.data_ptr(), o.data_ptr(), mask1.data_ptr(), cmask.data_ptr(),
-                          b, t, cin, dilation, dev.index,
+                          b, t, cin, dilation, plan, dev.index,
                           torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, err, "forward")
     LAUNCHES["fwd"] += 1
@@ -188,14 +327,14 @@ def kernel_bwd(dy: torch.Tensor, o: torch.Tensor, masks: Tuple[torch.Tensor, tor
     dcat = torch.empty((rows, CHAIN), dtype=torch.float32, device=dev)  # scratch
     dz1 = torch.empty((rows, PLANES), dtype=torch.bfloat16, device=dev)  # scratch
     dx = torch.empty((b, t, cin), dtype=torch.bfloat16, device=dev)
-    wrt = None if p.wr is None else _bf(p.wr.t())
-    w = [_f32(p.s1), _bf(transposed_chain_weights(p.wc)), _f32(p.sc), _f32(p.s3), _f32(p.t3),
-         _bf(p.w3.t()), _bf(p.w1.t()), wrt]
+    wp = packed_weights(p, backward=True)
+    w = [_f32(p.s1), wp["wc"], _f32(p.sc), _f32(p.s3), _f32(p.t3), wp["w3"], wp["w1"], wp["wr"]]
+    plan = _plan_array(bwd_plan(b, t, cin, dilation, _sms(dev.index)))
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.b2n_bwd(dyb.data_ptr(), ob.data_ptr(), mask1.data_ptr(), cmask.data_ptr(),
                           *[_ptr(a) for a in w], dcat.data_ptr(), dz1.data_ptr(), dx.data_ptr(),
-                          b, t, cin, dilation, dev.index,
+                          b, t, cin, dilation, plan, dev.index,
                           torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, err, "backward")
     LAUNCHES["bwd"] += 1

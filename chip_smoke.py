@@ -8,7 +8,9 @@ exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit;
 1. build the five kernels from ``adaa_tpu_torch/csrc`` (one nvcc per
-   source, all at once; timed);
+   source, all at once; timed), with each kernel's ptxas registers and
+   spills and, where ``cuobjdump`` exists, the count of wgmma (HGMMA),
+   TMA load (UTMALDG) and setmaxnreg instructions in the b2n library;
 2. the layer-0 kernel against its plain-torch twin at B=256 (bf16):
    forward outputs bit-equal at >= 99.9% and all within 1 bf16 ulp,
    winner index equal at >= 99.9%, dx relative L2 error < 1e-3; the
@@ -41,7 +43,11 @@ exit code is not 0:
     ``F.max_pool1d`` on the (B, C, T) view;
 11. the b2n kernels against their plain version at RawNet3's three block
     shapes, B=64: y bit-equal >= 97%, y mean relative error <= 1e-4, dx
-    relative L2 <= 5e-3 (B2N_*); medians of both;
+    relative L2 <= 5e-3 (B2N_*); medians of both; then, on a line of its
+    own, each b2n kernel's device time per layer from torch.profiler
+    around one forward and one backward, and ``gemm_library_ms``:
+    ``torch.matmul`` of the same bf16 products at the same shapes, summed,
+    a yardstick of the GEMM stage alone (the port never calls it);
 12. the bf16 RawNet3 at B=64 x 64,600 in its pool and b2n configurations,
     kernels against plain versions: logits within RAWNET3_LOGIT_ATOL;
 13. PGD-10 on RawNet3 at B=64 in the default, pool and b2n
@@ -56,7 +62,10 @@ the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
+import subprocess
 import time
 
 import numpy as np
@@ -345,6 +354,73 @@ def phase10_pool(pool):
     return main_shape
 
 
+# b2n kernels by stage, from their (mangled or demangled) names
+B2N_STAGES = (("conv1_gemm", "EpiH"), ("conv3_res_gemm", "EpiO"), ("dq_w3t_gemm", "EpiDcat"),
+              ("chain_fwd", "chain_kernelILb0E"), ("descent", "chain_kernelILb1E"),
+              ("dx_gemm", "gemm_kernel"))
+
+
+def b2n_stage(name: str) -> str:
+    name = name.replace("chain_kernel<false>", "chain_kernelILb0E")
+    name = name.replace("chain_kernel<true>", "chain_kernelILb1E")
+    return next((stage for stage, key in B2N_STAGES if key in name), "other")
+
+
+def sass_counts(lib) -> dict:
+    """wgmma, TMA-load and setmaxnreg instructions in a library's SASS, or
+    None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout.splitlines()
+    return {op: sum(op in ln for ln in sass) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
+
+
+def b2n_profile_ms(b2n, x, dy, o, masks, p, d, cin) -> dict:
+    """Device ms of each b2n kernel in one forward and one backward."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        b2n.kernel_fwd(x, p, d)
+        b2n.kernel_bwd(dy, o, masks, p, d, cin)
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            stage = b2n_stage(e.name)
+            ms[stage] = ms.get(stage, 0.0) + e.time_range.elapsed_us() / 1e3
+    return ms
+
+
+def b2n_gemm_library_ms(rows: int, cin: int) -> dict:
+    """torch.matmul of the b2n GEMM stage's bf16 products at their shapes:
+    forward x W1, cat W3 (and x Wr), backward dq W3^T, dz1 W1^T (and dy
+    Wr^T); a yardstick of the products alone, not of the kernels' work."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    x, a, w1, w3 = rand(rows, cin), rand(rows, 1024), rand(cin, 1024), rand(1024, 1024)
+    proj = cin != 1024
+    wr = rand(cin, 1024) if proj else None
+
+    def fwd():
+        torch.matmul(x, w1)
+        torch.matmul(a, w3)
+        if proj:
+            torch.matmul(x, wr)
+
+    def bwd():
+        torch.matmul(a, w3.t())
+        torch.matmul(a, w1.t())
+        if proj:
+            torch.matmul(a, wr.t())
+
+    return {"fwd": median_ms(fwd, reps=5, warmup=1), "bwd": median_ms(bwd, reps=5, warmup=1)}
+
+
 def b2n_block(rawnet3, cin: int, dilation: int, pool_size: int, seed: int):
     """A RawNet3 block with random weights, biases and BN statistics."""
     blk = rawnet3.Bottle2neck(cin, 1024, dilation, pool_size)
@@ -371,6 +447,12 @@ def phase11_b2n(b2n, rawnet3):
                                                "dx_rel_l2": B2N_DX_REL_L2}}
     tot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "bwd_ms", "bwd_plain_ms", "fwd_err",
                             "bwd_err", "fwd_bytes", "fwd_flops", "bwd_bytes", "bwd_flops")}
+    stages = {"phase": 11, "batch": RB,
+              "what": "b2n device ms by kernel, one forward and one backward (torch.profiler)",
+              "profile_ms": {}, "gemm_library_ms": {"fwd": 0.0, "bwd": 0.0},
+              "gemm_library_note": "torch.matmul of the same bf16 products at the same shapes, "
+                                   "summed over the layers: a yardstick of the GEMM stage alone, "
+                                   "never called by the port"}
     rng = np.random.default_rng(11)
     for name, (cin, d, pool_size, t) in (("layer1", (256, 2, 5, 6435)),
                                          ("layer2", (1024, 3, 3, 1287)),
@@ -417,9 +499,14 @@ def phase11_b2n(b2n, rawnet3):
         tot["fwd_flops"] += 2 * rows * per_row
         tot["bwd_bytes"] += 2 * 2 * rows * 1024 + 4 * rows * (32 + 28) + w_bytes + 2 * rows * cin
         tot["bwd_flops"] += 2 * rows * per_row
+        stages["profile_ms"][name] = b2n_profile_ms(b2n, x, dy, o_k, masks, p, d, cin)
         del x, dy, y_k, o_k, masks
         torch.cuda.empty_cache()
+        for k, v in b2n_gemm_library_ms(rows, cin).items():
+            stages["gemm_library_ms"][k] += v
+        torch.cuda.empty_cache()
     emit(out)
+    emit(stages)
     bounds = {"fwd": bound(tot["fwd_bytes"], tot["fwd_flops"], "bf16"),
               "bwd": bound(tot["bwd_bytes"], tot["bwd_flops"], "bf16")}
     return tot, bounds
@@ -508,7 +595,8 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln] for name in sources}
-    emit({"phase": 1, "build_s": build_s, "ptxas": ptxas})
+    emit({"phase": 1, "build_s": build_s, "ptxas": ptxas,
+          "b2n_sass": sass_counts(_build.BUILD_DIR / "libb2n.so")})
 
     l0_fwd_err, l0_bwd_err, l0_times, l0_bounds = phase2_layer0(layer0)
 

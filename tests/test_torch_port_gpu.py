@@ -290,6 +290,29 @@ def test_b2n_kernels_match_plain(cuda, cin, dilation, pool_size, t):
     assert y_eq >= B2N_Y_BIT_EQUAL and y_rel <= B2N_Y_MEAN_REL and dx_rel <= B2N_DX_REL_L2
 
 
+def b2n_edge_length(dilation: int, edge: str) -> int:
+    """A sequence length at an edge of the chain kernel's regions: shorter
+    than one region's central rows, one row past a region, or one partial
+    region after a whole one."""
+    c = b2n.chain_plan(dilation, 1).central
+    return {"short": c // 2, "one_past": c + 1, "partial": 2 * c - 5}[edge]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,dilation,pool_size", B2N_CASES)
+@pytest.mark.parametrize("edge", ["short", "one_past", "partial"])
+@pytest.mark.parametrize("b", [1, 2])
+def test_b2n_kernels_edge_lengths(cuda, cin, dilation, pool_size, edge, b):
+    """The kernels at sequence lengths on the chain regions' edges (and M
+    not a multiple of the GEMM's 128-row tile), B=1 and B=2."""
+    t = b2n_edge_length(dilation, edge)
+    blk = b2n_block(cin, dilation, pool_size, 70 + dilation, cuda)
+    x = (_randn(t + b, (b, t, cin)) * 0.3).to(cuda, torch.bfloat16)
+    dy = _randn(t + b + 1, (b, t, 1024)).to(cuda, torch.bfloat16)
+    y_eq, y_rel, dx_rel = b2n_compare(x, dy, blk.folded(), dilation)
+    assert y_eq >= B2N_Y_BIT_EQUAL and y_rel <= B2N_Y_MEAN_REL and dx_rel <= B2N_DX_REL_L2
+
+
 @pytest.mark.gpu
 def test_b2n_wrapper_launches_kernels(cuda):
     blk = b2n_block(256, 2, 5, 50, cuda)
