@@ -10,7 +10,8 @@ exit code is not 0:
 1. build the five kernels from ``adaa_tpu_torch/csrc`` (one nvcc per
    source, all at once; timed), with each kernel's ptxas registers and
    spills and, where ``cuobjdump`` exists, the count of wgmma (HGMMA),
-   TMA load (UTMALDG) and setmaxnreg instructions in the b2n library;
+   TMA load (UTMALDG) and setmaxnreg instructions in the trunk and b2n
+   libraries;
 2. the layer-0 kernel against its plain-torch twin at B=256 (bf16):
    forward outputs bit-equal at >= 99.9% and all within 1 bf16 ulp,
    winner index equal at >= 99.9%, dx relative L2 error < 1e-3; the
@@ -26,8 +27,12 @@ exit code is not 0:
    JAX package's band for its own kernel), medians of both;
 6. the fused trunk kernels against their plain version at B=256,
    segments A and B: forward >= 99.9% bit-equal after the cast to bf16
-   and max abs error <= 1e-4 x max |ref| in f32, dx relative L2 < 3e-3
-   (TRUNK_DX_RTOL), medians of both;
+   and max abs error <= 1e-4 x max |ref| in f32, tie mask >= 99.9% equal
+   to the plain mask, dx (from the kernel's mask) relative L2 < 3e-3
+   (TRUNK_DX_RTOL) against the plain dx; medians of both, each kernel's
+   device ms (torch.profiler) and ``conv_library_ms``: cuDNN's bf16
+   channels-last conv3x3 and its input gradient at the same shapes, a
+   yardstick of the conv stage alone (the port never calls it);
 7. the fused configuration of the LCNN (fused LFCC + fused trunk) at
    B=256, kernels against plain versions: logits within LOGIT_ATOL;
 8. PGD-10 on the fused configuration, checked as in phase 4, with >= 10
@@ -216,9 +221,22 @@ def phase5_lfcc(lfcc_fused):
     return worst, result["linear"]["ms"], result["linear"]["plain_ms"], b
 
 
+def trunk_conv_library_ms(am, wb, spec) -> dict:
+    """cuDNN bf16 channels-last conv3x3 of the same shapes: the forward and
+    its input gradient, a yardstick of the conv stage alone (no MFM, pool or
+    routing; the port never calls it)."""
+    x = am.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    w = wb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    dy = torch.randn(x.shape[0], spec.c_out, spec.t, spec.f, device="cuda", generator=gen)
+    dy = dy.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return {"fwd": median_ms(lambda: F.conv2d(x, w, padding=1)),
+            "bwd": median_ms(lambda: torch.nn.grad.conv2d_input(x.shape, w, dy, padding=1))}
+
+
 def phase6_trunk(trunk):
     rng = np.random.default_rng(6)
-    out = {"phase": 6, "batch": B}
+    out = {"phase": 6, "batch": B, "mask_equal_min": 0.999}
     totals = {"fwd_ms": 0.0, "fwd_plain_ms": 0.0, "bwd_ms": 0.0, "bwd_plain_ms": 0.0,
               "fwd_err": 0.0, "bwd_err": 0.0, "fwd_bytes": 0.0, "fwd_flops": 0.0,
               "bwd_bytes": 0.0, "bwd_flops": 0.0}
@@ -227,45 +245,54 @@ def phase6_trunk(trunk):
         wb = randn(rng, (spec.c_out, spec.c2, 3, 3), 1.0 / np.sqrt(9 * spec.c2))
         bb = randn(rng, (spec.c_out,), 0.1)
         g = randn(rng, (B, spec.t_out, spec.f_out, spec.half)).to(torch.bfloat16).float()
-        y_k = trunk.kernel_fwd(am, wb, bb, spec)
-        y_r = trunk.reference_fwd(am, wb, bb, spec)
-        dx_k = trunk.kernel_bwd(am, wb, bb, g, spec)
+        # packed as the forward keeps it for the backward
+        wpk = trunk.pack_weights(wb, spec, backward=True)
+        y_k, m_k = trunk.kernel_fwd(am, wb, bb, spec, True)
+        y_r, m_r = trunk.reference_fwd(am, wb, bb, spec), trunk.reference_mask(am, wb, bb, spec)
+        dx_k = trunk.kernel_bwd(m_k, g, wb, spec, wpk)
         dx_r = trunk.reference_bwd(am, wb, bb, g, spec)
         torch.cuda.synchronize()
-        cand = trunk._candidates(am, wb, bb, spec)
-        routed = int((cand == cand.amax(dim=(1, 4, 6), keepdim=True)).sum())
-        del cand
+        routed = int(sum(int(((m_r >> k) & 1).sum()) for k in range(8)))
         bit_equal = float((y_k.to(torch.bfloat16) == y_r.to(torch.bfloat16)).float().mean())
+        mask_equal = float((m_k == m_r).float().mean())
         fwd_err = float((y_k - y_r).abs().max())
         scale = float(y_r.abs().max())
         dx_rel = float((dx_k - dx_r).norm() / dx_r.norm())
-        seg = {"fwd_bit_equal_bf16": bit_equal, "fwd_max_abs_err": fwd_err,
-               "fwd_max_abs_ref": scale, "dx_rel_l2": dx_rel,
+        seg = {"fwd_bit_equal_bf16": bit_equal, "mask_equal": mask_equal,
+               "fwd_max_abs_err": fwd_err, "fwd_max_abs_ref": scale, "dx_rel_l2": dx_rel,
                "bwd_max_abs_err": float((dx_k - dx_r).abs().max()),
                "routed_cotangents": routed,
-               "fwd_ms": median_ms(lambda: trunk.kernel_fwd(am, wb, bb, spec)),
-               "fwd_plain_ms": median_ms(lambda: trunk.reference_fwd(am, wb, bb, spec)),
-               "bwd_ms": median_ms(lambda: trunk.kernel_bwd(am, wb, bb, g, spec)),
-               "bwd_plain_ms": median_ms(lambda: trunk.reference_bwd(am, wb, bb, g, spec))}
+               "fwd_ms": median_ms(lambda: trunk.kernel_fwd(am, wb, bb, spec, True)),
+               "fwd_plain_ms": median_ms(lambda: trunk._pool_and_mask(am, wb, bb, spec, with_mask=True)),
+               "bwd_ms": median_ms(lambda: trunk.kernel_bwd(m_k, g, wb, spec, wpk)),
+               "bwd_plain_ms": median_ms(lambda: trunk.reference_dx(m_r, g, wb, spec)),
+               "kernel_ms": device_ms(lambda: (trunk.kernel_fwd(am, wb, bb, spec, True),
+                                               trunk.kernel_bwd(m_k, g, wb, spec, wpk)),
+                                      trunk_stage),
+               "conv_library_ms": trunk_conv_library_ms(am, wb, spec)}
         out[name] = seg
         check(bit_equal >= 0.999, f"segment {name}: bf16 bit-equal share {bit_equal} < 0.999")
+        check(mask_equal >= 0.999, f"segment {name}: tie-mask equal share {mask_equal} < 0.999")
         check(fwd_err <= 1e-4 * scale, f"segment {name}: forward error {fwd_err} > 1e-4 x {scale}")
         check(dx_rel < TRUNK_DX_RTOL, f"segment {name}: dx relative L2 {dx_rel} >= {TRUNK_DX_RTOL}")
         for k in ("fwd_ms", "fwd_plain_ms", "bwd_ms", "bwd_plain_ms"):
             totals[k] += seg[k]
         totals["fwd_err"] = max(totals["fwd_err"], fwd_err)
         totals["bwd_err"] = max(totals["bwd_err"], seg["bwd_max_abs_err"])
-        # bytes: am, weights, bias, out / am, g, weights, bias, dx (f32);
-        # bf16 products: 9 c2 per conv output that reaches the pool, and
-        # the backward's recompute plus 9 c2 per routed cotangent
+        # the work of the function each kernel computes. Forward: am, the
+        # weights and bias (f32) in, out (f32) and the mask out; bf16
+        # products, 9 c2 per conv output that reaches the pool. dx: g (f32),
+        # the mask and the packed bf16 weights in, dx (f32) out; dy is sparse,
+        # so its products are 9 c2 per routed cotangent of this run's data
         n_am = B * spec.t * spec.f * spec.c2
         n_y = B * spec.t_out * spec.f_out * spec.half
         n_w = spec.c_out * spec.c2 * 9 + spec.c_out
-        conv_flops = 2 * 9 * spec.c2 * B * 4 * spec.t_out * spec.f_out * spec.c_out
-        totals["fwd_bytes"] += 4 * (n_am + n_w + n_y)
-        totals["fwd_flops"] += conv_flops
-        totals["bwd_bytes"] += 4 * (n_am + n_y + n_w + n_am)
-        totals["bwd_flops"] += conv_flops + 2 * 9 * spec.c2 * routed
+        totals["fwd_bytes"] += 4 * (n_am + n_w + n_y) + n_y
+        totals["fwd_flops"] += 2 * 9 * spec.c2 * B * 4 * spec.t_out * spec.f_out * spec.c_out
+        totals["bwd_bytes"] += 4 * n_y + n_y + 2 * (n_w - spec.c_out) + 4 * n_am
+        totals["bwd_flops"] += 2 * 9 * spec.c2 * routed
+        del am, g, y_k, y_r, m_k, m_r, dx_k, dx_r
+        torch.cuda.empty_cache()
     emit(out)
     bounds = {"fwd": bound(totals["fwd_bytes"], totals["fwd_flops"], "bf16"),
               "bwd": bound(totals["bwd_bytes"], totals["bwd_flops"], "bf16")}
@@ -377,20 +404,29 @@ def sass_counts(lib) -> dict:
     return {op: sum(op in ln for ln in sass) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
 
 
-def b2n_profile_ms(b2n, x, dy, o, masks, p, d, cin) -> dict:
-    """Device ms of each b2n kernel in one forward and one backward."""
+def device_ms(fn, stage_of) -> dict:
+    """Device ms of the kernels one call of ``fn`` launches (torch.profiler),
+    summed by ``stage_of(kernel name)``; a kernel it maps to None is left out.
+    One warm-up call runs under the profiler first: without it, the kernels
+    at the start of a session were sometimes not recorded."""
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        b2n.kernel_fwd(x, p, d)
-        b2n.kernel_bwd(dy, o, masks, p, d, cin)
-        torch.cuda.synchronize()
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule, acc_events=True) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     ms = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            stage = b2n_stage(e.name)
+        stage = stage_of(e.name) if e.device_type == DeviceType.CUDA else None
+        if stage is not None:
             ms[stage] = ms.get(stage, 0.0) + e.time_range.elapsed_us() / 1e3
     return ms
+
+
+def trunk_stage(name: str):
+    return "fwd" if "trunk_fwd_kernel" in name else "dx" if "trunk_dx_kernel" in name else None
 
 
 def b2n_gemm_library_ms(rows: int, cin: int) -> dict:
@@ -499,7 +535,8 @@ def phase11_b2n(b2n, rawnet3):
         tot["fwd_flops"] += 2 * rows * per_row
         tot["bwd_bytes"] += 2 * 2 * rows * 1024 + 4 * rows * (32 + 28) + w_bytes + 2 * rows * cin
         tot["bwd_flops"] += 2 * rows * per_row
-        stages["profile_ms"][name] = b2n_profile_ms(b2n, x, dy, o_k, masks, p, d, cin)
+        stages["profile_ms"][name] = device_ms(
+            lambda: (b2n.kernel_fwd(x, p, d), b2n.kernel_bwd(dy, o_k, masks, p, d, cin)), b2n_stage)
         del x, dy, y_k, o_k, masks
         torch.cuda.empty_cache()
         for k, v in b2n_gemm_library_ms(rows, cin).items():
@@ -596,7 +633,8 @@ def main() -> None:
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln] for name in sources}
     emit({"phase": 1, "build_s": build_s, "ptxas": ptxas,
-          "b2n_sass": sass_counts(_build.BUILD_DIR / "libb2n.so")})
+          "sass_counts": {name: sass_counts(_build.BUILD_DIR / f"lib{name}.so")
+                          for name in ("trunk", "b2n")}})
 
     l0_fwd_err, l0_bwd_err, l0_times, l0_bounds = phase2_layer0(layer0)
 

@@ -14,10 +14,13 @@ products in f32 in other orders:
   winner index >= 99.9% equal, dx relative L2 < 1e-3;
 * fused LFCC: atol 5e-4 + rtol 1e-4 (tests/test_pallas_lfcc.py's band);
 * trunk segments: forward >= 99.9% bit-equal after the cast to bf16 and
-  max abs error <= 1e-4 x max |ref| in f32, dx relative L2 < 3e-3: in
-  other summation orders, candidates within an ulp of each other can
-  route a whole cotangent to another conv output, a few dozen times at
-  B=256 (measured 4.5e-4 to 1.05e-3);
+  max abs error <= 1e-4 x max |ref| in f32, tie mask >= 99.9% equal, dx
+  relative L2 < 1e-5 against the plain dx of the kernel's own mask (f32
+  order only) and, at B=256, < 3e-3 against the plain dx of the plain
+  mask: in other summation orders, candidates within an ulp of each other
+  can route a whole cotangent to another conv output, a few dozen times
+  at B=256 (measured 5.7e-4 to 6.2e-4), which at B=3 alone can reach
+  2.6e-3;
 * the f32-highest LCNN's input gradient with default TF32 flags vs TF32
   off globally, cuDNN deterministic in both: relative L2 <= 1e-6 (its
   convs turn TF32 off themselves, forward and backward);
@@ -123,19 +126,28 @@ def test_lfcc_kernel_matches_plain(cuda, b, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [3, 256])
+@pytest.mark.parametrize("b", [1, 2, 3, 256])
 @pytest.mark.parametrize("spec", trunk.SEGMENTS, ids=["A", "B"])
 def test_trunk_kernels_match_plain(cuda, b, spec):
-    """chip_smoke.py phase 6."""
+    """chip_smoke.py phase 6, and batches of one to three tiles' worth of
+    samples: the forward and its tie mask against the plain ones, the dx
+    kernel against the plain dx of the same mask (f32 order only) and
+    against the plain dx of the plain mask (chip_smoke.py's band)."""
     am = _randn(b, (b, spec.t, spec.f, spec.c2)).to(cuda)
     wb = _randn(b + 1, (spec.c_out, spec.c2, 3, 3), 1.0 / np.sqrt(9 * spec.c2)).to(cuda)
     bb = _randn(b + 2, (spec.c_out,), 0.1).to(cuda)
     g = _randn(b + 3, (b, spec.t_out, spec.f_out, spec.half)).to(cuda, torch.bfloat16).float()
-    y_k, y_r = trunk.kernel_fwd(am, wb, bb, spec), trunk.reference_fwd(am, wb, bb, spec)
-    dx_k, dx_r = trunk.kernel_bwd(am, wb, bb, g, spec), trunk.reference_bwd(am, wb, bb, g, spec)
+    y_k, m_k = trunk.kernel_fwd(am, wb, bb, spec, True)
+    y_r = trunk.reference_fwd(am, wb, bb, spec)
+    m_r = trunk.reference_mask(am, wb, bb, spec)
+    dx_k = trunk.kernel_bwd(m_k, g, wb, spec)
     torch.cuda.synchronize()
     assert float((y_k.to(torch.bfloat16) == y_r.to(torch.bfloat16)).float().mean()) >= 0.999
     assert float((y_k - y_r).abs().max()) <= 1e-4 * float(y_r.abs().max())
+    assert float((m_k == m_r).float().mean()) >= 0.999
+    dx_same = trunk.reference_dx(m_k, g, wb, spec)
+    assert float((dx_k - dx_same).norm() / dx_same.norm()) < 1e-5
+    dx_r = trunk.reference_bwd(am, wb, bb, g, spec)
     rel = float((dx_k - dx_r).norm() / dx_r.norm())
     assert rel < 3e-3, rel
 
@@ -148,8 +160,10 @@ def test_trunk_kernel_splits_exact_ties_evenly(cuda):
     wb = _randn(40, (spec.c_out, spec.c2, 3, 3), 0.06).to(cuda)
     bb = torch.zeros(spec.c_out, device=cuda)
     g = torch.ones(1, spec.t_out, spec.f_out, spec.half, device=cuda)
-    dx_k, dx_r = trunk.kernel_bwd(am, wb, bb, g, spec), trunk.reference_bwd(am, wb, bb, g, spec)
+    _, mask = trunk.kernel_fwd(am, wb, bb, spec, True)
+    dx_k, dx_r = trunk.kernel_bwd(mask, g, wb, spec), trunk.reference_bwd(am, wb, bb, g, spec)
     torch.cuda.synchronize()
+    assert bool((mask == 255).all())
     assert float(dx_r.abs().max()) > 0
     torch.testing.assert_close(dx_k, dx_r, rtol=1e-5, atol=1e-5)
 

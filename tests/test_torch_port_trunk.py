@@ -19,6 +19,9 @@ Tolerances (bf16 x, as on the model's path):
   (measured 3.5e-5): every tie is exact on both sides, so only the
   summation order remains, which flips the last bit of a few bf16 dx
   values; sending the whole cotangent to every tie would be off by 7x;
+* the tie mask against the JAX op's tie set (its candidates equal to
+  their pooled max): >= 99.9% equal on random data (another summation
+  order can break a near-tie), all equal on the crafted exact ties;
 * the kernels' packed weights, combined as the CUDA kernels combine
   them: equal to the plain version within 1e-5 (f32 order only).
 """
@@ -74,6 +77,23 @@ def _port_segment(spec, x, wa, ba, wb, bb, cot):
     return out.detach(), dx.float().numpy()
 
 
+def _jax_tie_mask(spec, am, wb, bb) -> torch.Tensor:
+    """The JAX op's tie set as the port's mask bits 4 pt + 2 pf + h: the
+    candidates of its kernel (bf16 products, f32 sums, f32 bias) equal to
+    their pooled max. am (B, T, F, c2) f32, wb HWIO."""
+    y = jax.lax.conv_general_dilated(
+        jnp.asarray(am).astype(jnp.bfloat16), jnp.asarray(wb).astype(jnp.bfloat16), (1, 1),
+        [(1, 1), (1, 1)], dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.float32) + jnp.asarray(bb)
+    y = np.asarray(y)[:, : 2 * spec.t_out, : 2 * spec.f_out]
+    y = y.reshape(am.shape[0], spec.t_out, 2, spec.f_out, 2, 2, spec.half)  # (.., pt, .., pf, h, c)
+    eq = y == y.max(axis=(2, 4, 5), keepdims=True)
+    w = (2 ** (4 * np.arange(2)[:, None, None] + 2 * np.arange(2)[None, :, None]
+               + np.arange(2)[None, None, :]))  # (pt, pf, h)
+    bits = (eq * w[None, None, :, None, :, :, None]).sum(axis=(2, 4, 5))
+    return torch.from_numpy(bits.astype(np.uint8))
+
+
 def test_segment_specs_match_jax():
     for spec, jspec in ((trunk.SEGMENT_A, pk.SEGMENT_A), (trunk.SEGMENT_B, pk.SEGMENT_B)):
         assert tuple(spec) == tuple(jspec)
@@ -116,45 +136,84 @@ def test_exact_ties_split_evenly_as_jax():
     y = trunk._candidates(am, _oihw(wb), torch.from_numpy(bb), spec)
     cnt = (y == y.amax(dim=(1, 4, 6), keepdim=True)).sum(dim=(1, 4, 6))
     assert int(cnt.max()) == 8 and int(cnt.min()) < 8
+    # the mask holds exactly the JAX tie set, whose popcounts are those counts
+    mask = trunk.reference_mask(am, _oihw(wb), torch.from_numpy(bb), spec)
+    torch.testing.assert_close(mask, _jax_tie_mask(spec, am.numpy(), wb, bb), rtol=0, atol=0)
+    bits = torch.stack([(mask.int() >> k) & 1 for k in range(8)], -1).sum(-1)
+    assert torch.equal(bits, cnt.permute(0, 2, 3, 1).int())
 
 
-def test_kernel_weight_packing_reassembles_the_conv():
-    """The CUDA kernels' weight layouts and index arithmetic, mirrored in
-    torch: forward candidates from the (c2, 9, 8, 2 CH) pack over each
-    pooled pixel's 4x4 patch, and dx gathered from the (c_out, 3, 3, c2)
-    pack as dy[t + 1 - dt][f + 1 - df]."""
+@pytest.mark.parametrize("spec", trunk.SEGMENTS, ids=["A", "B"])
+def test_mask_is_the_jax_tie_set(spec):
+    """On random data (ties broken almost surely, near-ties aside) the mask
+    has one bit per pooled output, the JAX kernel's winner."""
+    rng = np.random.default_rng(65 + spec.c2)
+    am = rng.standard_normal((2, spec.t, spec.f, spec.c2)).astype(np.float32)
+    _, _, _, wb, bb, _ = _data(66, spec, b=1)
+    mask = trunk.reference_mask(torch.from_numpy(am), _oihw(wb), torch.from_numpy(bb), spec)
+    assert mask.shape == (2, spec.t_out, spec.f_out, spec.half) and mask.dtype == torch.uint8
+    agree = float((mask == _jax_tie_mask(spec, am, wb, bb)).float().mean())
+    assert agree >= 0.999, agree
+    assert float((mask != 0).float().mean()) == 1.0
+
+
+def test_dy_splits_the_cotangent_over_the_set_bits():
+    """reference_dy: bf16(g / popcount) on each set candidate, 0 elsewhere and
+    on the rows and columns the floor pool drops (segment B's odd T)."""
     spec = trunk.SEGMENT_B
-    rng = np.random.default_rng(70)
-    am = torch.from_numpy(rng.standard_normal((2, spec.t, spec.f, spec.c2)).astype(np.float32))
-    wb = torch.from_numpy((rng.standard_normal((spec.c_out, spec.c2, 3, 3)) * 0.1).astype(np.float32))
-    bb = torch.from_numpy((rng.standard_normal(spec.c_out) * 0.1).astype(np.float32))
-    ch = spec.half // trunk.GROUPS
-    wpk = trunk.pack_forward_weights(wb, spec)
-    assert wpk.shape == (spec.c2, 9, trunk.GROUPS, 2 * ch)
-    xpad = F.pad(am.to(torch.bfloat16).float(), (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros(2, spec.t_out, spec.f_out, 4, trunk.GROUPS, 2 * ch)
-    for pt in range(2):
-        for pf in range(2):
-            for tap in range(9):
-                dt, df = divmod(tap, 3)
-                r, c = pt + dt, pf + df
-                patch = xpad[:, r: r + 2 * spec.t_out: 2, c: c + 2 * spec.f_out: 2]
-                acc[..., 2 * pt + pf, :, :] += torch.einsum("btfc,cgk->btfgk", patch, wpk[:, tap])
-    acc = acc.reshape(2, spec.t_out, spec.f_out, 4, trunk.GROUPS, 2, ch)
-    bias = bb.reshape(2, trunk.GROUPS, ch).permute(1, 0, 2)  # (g, h, c)
-    out = (acc + bias).amax(dim=(3, 5)).reshape(2, spec.t_out, spec.f_out, spec.half)
-    torch.testing.assert_close(out, trunk.reference_fwd(am, wb, bb, spec), rtol=1e-5, atol=1e-5)
+    mask = torch.zeros(1, spec.t_out, spec.f_out, spec.half, dtype=torch.uint8)
+    g = torch.zeros(1, spec.t_out, spec.f_out, spec.half)
+    mask[0, 3, 4, 5] = 0b10010001  # bits 0, 4, 7: (pt, pf, h) = (0,0,0), (1,0,0), (1,1,1)
+    g[0, 3, 4, 5] = 1.0
+    mask[0, 49, 9, 0] = 0b00000010  # bit 1: (0, 0, 1), the last pooled row and column
+    g[0, 49, 9, 0] = -2.5
+    dy = trunk.reference_dy(mask, g, spec)
+    assert dy.shape == (1, spec.c_out, spec.t, spec.f)
+    third = float(torch.tensor(1.0 / 3.0).to(torch.bfloat16))
+    want = {(5, 6, 8): third, (5, 7, 8): third, (spec.half + 5, 7, 9): third,
+            (spec.half + 0, 98, 18): -2.5}
+    for (c, t, f), v in want.items():
+        assert float(dy[0, c, t, f]) == v
+    assert int((dy != 0).sum()) == len(want)
+    assert float(dy[0, :, spec.t - 1].abs().max()) == 0.0
 
-    wtk = trunk.pack_backward_weights(wb)  # (c_out, 3, 3, c2)
-    dy = torch.from_numpy(rng.standard_normal((2, spec.c_out, spec.t, spec.f)).astype(np.float32))
-    dy[:, :, 2 * spec.t_out:] = 0.0  # the floor pool's dropped row gets no cotangent
+
+@pytest.mark.parametrize("spec", trunk.SEGMENTS, ids=["A", "B"])
+def test_kernel_weight_packing_reassembles_the_conv(spec):
+    """The CUDA kernels' weight images, unswizzled: the forward operand is
+    OIHW reordered so that column 8 j + 2 q + h holds conv channel
+    h half + q (c_out / 8) + j at k = (3 dt + df) c2 + ci, and the dx
+    operand holds channel ci at k = (3 dt + df) c_out + co; taken back to
+    OIHW they are the bf16 weights, and the dx operand's products are the
+    transposed conv (tests/test_torch_port_trunk_layout.py replays the
+    kernels' GEMMs in full)."""
+    rng = np.random.default_rng(70)
+    wb = torch.from_numpy((rng.standard_normal((spec.c_out, spec.c2, 3, 3)) * 0.1)
+                          .astype(np.float32))
+    wbf = wb.to(torch.bfloat16).float()
+    wf = trunk.unswizzle_operand(trunk.pack_weights(wb, spec, backward=False), spec.c_out,
+                                 9 * spec.c2)
+    wd = trunk.unswizzle_operand(trunk.pack_weights(wb, spec, backward=True), spec.c2,
+                                 9 * spec.c_out)
+    nj = spec.c_out // 8
+    for n in range(spec.c_out):
+        j, q, h = n // 8, (n % 8) // 2, n % 2
+        co = h * spec.half + q * nj + j
+        for tap in range(9):
+            dt, df = divmod(tap, 3)
+            assert torch.equal(wf[n, tap * spec.c2: (tap + 1) * spec.c2].float(),
+                               wbf[co, :, dt, df])
+    back = wd.float().reshape(spec.c2, 3, 3, spec.c_out).permute(3, 0, 1, 2)
+    assert torch.equal(back, wbf)
+    dy = torch.from_numpy(rng.standard_normal((1, spec.c_out, spec.t, spec.f)).astype(np.float32))
     dypad = F.pad(dy, (1, 1, 1, 1))
-    dx = torch.zeros(2, spec.t, spec.f, spec.c2)
-    for dt in range(3):
-        for df in range(3):
-            d = dypad[:, :, 2 - dt: 2 - dt + spec.t, 2 - df: 2 - df + spec.f]
-            dx += torch.einsum("bohw,oc->bhwc", d, wtk[:, dt, df])
-    ref = F.conv_transpose2d(dy, wb.to(torch.bfloat16).float(), padding=1).permute(0, 2, 3, 1)
+    dx = torch.zeros(1, spec.t, spec.f, spec.c2)
+    for tap in range(9):
+        dt, df = divmod(tap, 3)
+        d = dypad[:, :, 2 - dt: 2 - dt + spec.t, 2 - df: 2 - df + spec.f]
+        w_tap = wd[:, tap * spec.c_out: (tap + 1) * spec.c_out].float()
+        dx += torch.einsum("bohw,co->bhwc", d, w_tap)
+    ref = F.conv_transpose2d(dy, wbf, padding=1).permute(0, 2, 3, 1)
     torch.testing.assert_close(dx, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -173,7 +232,7 @@ def test_weight_gradient_raises_and_inputs_checked():
     with pytest.raises(ValueError):
         trunk.fused_segment(xt, *args, trunk.SegmentSpec(101, 20, 48, 96, 64))
     with pytest.raises(ValueError, match="CUDA"):
-        trunk.kernel_fwd(torch.zeros(1, spec.t, spec.f, spec.c2), args[2], args[3], spec)
+        trunk.kernel_fwd(torch.zeros(1, spec.t, spec.f, spec.c2), args[2], args[3], spec, False)
 
 
 def test_cpu_wrapper_runs_plain_without_launches():
