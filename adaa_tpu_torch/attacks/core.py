@@ -25,16 +25,30 @@ AttackFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Generator]], tor
 
 
 def make_logits_fn(model: nn.Module) -> LogitsFn:
-    """Deterministic eval-mode forward with frozen parameters.
+    """Deterministic eval-mode forward with frozen parameters, leaving the
+    caller's model as it was.
 
-    ``eval()`` keeps BatchNorm on its running stats and Dropout off, and
-    freezing the parameters leaves only the input's gradient to compute.
+    Each call runs ``model`` in ``eval()`` (BatchNorm on its running
+    stats, Dropout off) with every parameter's ``requires_grad`` off, so
+    only the input's gradient is computed and the kernels' dx-only
+    Functions see weights that need no gradient; then it restores each
+    module's ``training`` flag and each parameter's ``requires_grad``. So
+    an adversarial trainer can attack the model it is training between
+    optimiser steps, as the JAX package's pure ``make_logits_fn`` allows.
     """
-    model.eval()
-    model.requires_grad_(False)
 
     def logits_fn(x: torch.Tensor) -> torch.Tensor:
-        return model(x)
+        modes = [(m, m.training) for m in model.modules()]
+        grads = [(p, p.requires_grad) for p in model.parameters()]
+        model.eval()
+        model.requires_grad_(False)
+        try:
+            return model(x)
+        finally:
+            for m, training in modes:
+                m.training = training
+            for p, requires_grad in grads:
+                p.requires_grad_(requires_grad)
 
     return logits_fn
 

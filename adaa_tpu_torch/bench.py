@@ -60,7 +60,10 @@ def setup(batch: Optional[int] = None, seed: int = 0, device: str = "cuda",
     batch = batch or default_batch
     config = config or (FUSED_CONFIG if fused else default_config)
     gen = set_seed(seed, device)
+    # the attacked detector is frozen: its direct calls (clean logits, checks)
+    # run in eval mode, as every call of make_logits_fn's does
     net = models.init_model(models.get_model(model, config), gen, device)
+    net.eval().requires_grad_(False)
     logits_fn = attacks.make_logits_fn(net)
     attack = attacks.attack_in_wave_space(attacks.build_attack("PGD", logits_fn))
     rng = np.random.default_rng(seed)

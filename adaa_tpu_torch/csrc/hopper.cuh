@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks as raw PTX: mbarriers, TMA tile loads and
 // stores, 1-D bulk loads, wgmma (bf16 -> f32, m64n128k16 with A from shared
-// memory or from registers; m64nNk16 for N = 32, 48, 96, 128 with A from
+// memory or from registers; m64nNk16 for N = 32, 48, 64, 96, 128 with A from
 // registers), ldmatrix, named barriers and setmaxnreg; and, on the host, the
 // 2-D TMA descriptor of a row-major bf16 or f32 matrix with the 128-byte
 // swizzle.
@@ -255,7 +255,7 @@ __device__ __forceinline__ void fence_acc(AccN<N>& a) {
 
 // D (64 x N, f32) (+)= A (64 x 16, registers, as ldmatrix.x4 gives each
 // warp's 16 rows) B (16 x N, shared, K-major with the 128-byte swizzle);
-// N = 32, 48, 96 or 128.
+// N = 32, 48, 64, 96 or 128.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_n(AccN<N>& acc, const uint32_t (&a)[4], uint64_t desc_b,
                                            int accumulate);
@@ -289,6 +289,24 @@ __device__ __forceinline__ void wgmma_rs_n<48>(AccN<48>& acc, const uint32_t (&a
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_n<64>(AccN<64>& acc, const uint32_t (&a)[4],
+                                               uint64_t desc_b, int accumulate) {
+  float* d = acc.d;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 

@@ -4,6 +4,7 @@ LCNN and RawNet3 are ported; SpecRNet is in ROADMAP.md.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Union
 
 import torch
@@ -16,8 +17,11 @@ WAVE_LENGTH = 64_600  # canonical input length (reference base_dataset.py:27)
 
 
 def get_model(model_name: str, config: Dict[str, Any]) -> nn.Module:
-    """Build a detector (uninitialised; see ``init_model``)."""
-    compute_dtype = torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else None
+    """Build a detector (uninitialised; see ``init_model``). bf16 when
+    ``config["compute_dtype"] == "bfloat16"`` or ``ADAA_BF16=1``, as the
+    JAX package's ``get_model`` chooses."""
+    bf16 = config.get("compute_dtype") == "bfloat16" or os.environ.get("ADAA_BF16") == "1"
+    compute_dtype = torch.bfloat16 if bf16 else None
     if model_name == "rawnet3":
         return RawNet3(compute_dtype=compute_dtype, fused_pool=config.get("fused_pool"),
                        fused_b2n=config.get("fused_b2n"))

@@ -2,9 +2,11 @@
 
 Replaces the TPU kernel ``adaa_tpu/ops/pallas_lfcc.py`` (``lfcc_pallas``,
 ``mfcc_pallas`` -> ``_lfcc_tiles`` / ``_kernel``) with a CUDA C++ kernel
-for Hopper (``adaa_tpu_torch/csrc/lfcc.cu``, built by ``ops/_build.py``).
-The CUDA source's header says what bounds it on an H100 and how the
-design deals with that.
+for Hopper (``adaa_tpu_torch/csrc/lfcc.cu``, built by ``ops/_build.py``):
+a real FFT in shared memory instead of the TPU kernel's DFT product, with
+the reflect pad done where the kernel reads x. The CUDA source's header
+says what bounds it on an H100 and how the design deals with that; the
+FFT's window and twiddle tables come from ``fft_table``.
 
 What it computes, as the JAX op does: reflect padding by n_fft / 2, the
 hann-400 windowed DFT (n_fft 512, hop 160), power, a 257 -> 128
@@ -31,8 +33,8 @@ import torch.nn.functional as F
 
 from adaa_tpu_torch.ops import _build
 from adaa_tpu_torch.ops import filterbanks as fb
-from adaa_tpu_torch.ops.layer0 import ieee_f32
-from adaa_tpu_torch.ops.stft import _dft_kernel, device_constant
+from adaa_tpu_torch.ops.layer0 import device_scope, ieee_f32, raw_stream
+from adaa_tpu_torch.ops.stft import _dft_kernel, _padded_window, device_constant, hann_window
 
 WAVE_LEN = 64_600
 N_FFT, HOP, WIN, SR = 512, 160, 400, 16_000
@@ -55,25 +57,51 @@ def filterbank_matrix(kind: str) -> np.ndarray:
     raise ValueError(f"filterbank must be one of {FILTERBANKS}, got {kind!r}")
 
 
-@functools.lru_cache(maxsize=None)
-def _dft_columns() -> np.ndarray:
-    """(400, 512) f32: the DFT matrix on the window's taps, bins 0..255.
+TINY_BIN = 2.0 ** -16  # csrc/lfcc.cu: bins below this x the frame's energy go to float64
+# The FFT's tables, as csrc/lfcc.cu reads them (offsets in floats)
+TAB_WIN, TAB_W256, TAB_W32, TAB_W512 = 0, N_FFT, N_FFT + 2 * 256, N_FFT + 2 * 256 + 2 * 32
+TAB_LEN = TAB_W512 + 2 * 256
 
-    Column c = 128 j + 4 l + r holds bin 64 j + 2 l + r // 2, real part
-    for even r and imaginary part for odd r: the kernel's lane l of bin
-    tile j reads its four columns as one float4.
-    """
-    kern = _dft_kernel(N_FFT, WIN, "hann")[:, 0, WIN_OFF:WIN_OFF + WIN]  # (514, 400)
-    c = np.arange(4 * 128)
-    j, l, r = c // 128, (c % 128) // 4, c % 4
-    rows = 64 * j + 2 * l + r // 2 + N_BINS * (r % 2)
-    return np.ascontiguousarray(kern[rows].T)
+
+def _twiddles(n: int, e: np.ndarray) -> np.ndarray:
+    """exp(-2 pi i e / n) in float64, as all real parts then all imaginary parts."""
+    ang = -2.0 * np.pi * e.astype(np.float64) / n
+    return np.concatenate([np.cos(ang), np.sin(ang)])
 
 
 @functools.lru_cache(maxsize=None)
-def _nyquist_row() -> np.ndarray:
-    """(400,) f32: the real row of bin 256 (its imaginary row is ~0)."""
-    return np.ascontiguousarray(_dft_kernel(N_FFT, WIN, "hann")[N_BINS - 1, 0, WIN_OFF:WIN_OFF + WIN])
+def fft_table64() -> np.ndarray:
+    """(TAB_LEN,) float64: the kernel's window and twiddles. The window: the
+    f32 hann-400 zero-padded to 512. Then W256^(n2 k1) at 32 k1 + n2 (k1 <
+    8, n2 < 32; pass 1), W32^(m2 k2a) at 4 k2a + m2 (k2a < 8, m2 < 4; pass
+    2) and W512^k (k < 256; the real split)."""
+    win = _padded_window(hann_window(WIN), N_FFT, WIN)
+    k1, n2 = np.divmod(np.arange(256), 32)
+    k2a, m2 = np.divmod(np.arange(32), 4)
+    tab = np.concatenate([win, _twiddles(256, n2 * k1), _twiddles(32, m2 * k2a),
+                          _twiddles(512, np.arange(256))])
+    assert tab.shape == (TAB_LEN,)
+    return tab
+
+
+def fft_table() -> np.ndarray:
+    """The kernel's table: ``fft_table64`` rounded once to f32."""
+    return fft_table64().astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def cos_sin_512() -> np.ndarray:
+    """(2, 512) float64: cos and sin of 2 pi m / 512, for the kernel's float64
+    direct DFT of bins too small for the f32 FFT."""
+    ang = 2.0 * np.pi * np.arange(512) / 512
+    return np.stack([np.cos(ang), np.sin(ang)])
+
+
+def reflect_index(i: np.ndarray) -> np.ndarray:
+    """The kernel's reflect: wave index i of the padded frames -> the sample
+    it reads (the reflect pad by n_fft / 2, as F.pad(mode="reflect"))."""
+    i = np.where(i < 0, -i, i)
+    return np.where(i >= WAVE_LEN, 2 * (WAVE_LEN - 1) - i, i)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,35 +140,44 @@ def _reflect_pad(x: torch.Tensor) -> torch.Tensor:
 # CUDA kernel
 # --------------------------------------------------------------------------
 
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# x, the table and its length, cos / sin in float64, filt, franges, dct, out,
+# batch, device, stream
+ARGTYPES = {"lfcc_fwd": [_PTR, _PTR, _I32] + [_PTR] * 5 + [_I32, _I32, _PTR]}
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("lfcc")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lfcc_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
-    lib.lfcc_fwd.restype = i32
-    lib.lfcc_error_string.argtypes = [i32]
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I32
+    lib.lfcc_error_string.argtypes = [_I32]
     lib.lfcc_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def kernel_forward(x: torch.Tensor, filterbank: str = "linear") -> torch.Tensor:
-    """Launch the kernel on x's current stream: (B, 64600) -> (B, 80, 404) f32."""
+    """Launch the kernel on x's current stream: (B, 64600) -> (B, 80, 404) f32.
+    The kernel reads x itself and reflects the frames' edges (no padded copy)."""
     if not x.is_cuda:
         raise ValueError("kernel_forward takes CUDA tensors")
-    xp = _reflect_pad(x.detach()).contiguous()
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.float().contiguous()
     dev = x.device
-    kt = device_constant(_dft_columns, (), dev)
-    nyq = device_constant(_nyquist_row, (), dev)
+    tab = device_constant(fft_table, (), dev)
+    cs64 = device_constant(cos_sin_512, (), dev)
     filt = device_constant(filterbank_matrix, (filterbank,), dev)
     ranges = device_constant(_filter_ranges, (filterbank,), dev)
     dct = device_constant(_dct_matrix, (), dev)
     b = x.shape[0]
-    out = torch.empty((b, N_CEP, N_FRAMES), dtype=torch.float32, device=dev)
+    out = x.new_empty((b, N_CEP, N_FRAMES))
     lib = _library()
-    with torch.cuda.device(dev):  # the C side selects the same device
-        err = lib.lfcc_fwd(xp.data_ptr(), kt.data_ptr(), nyq.data_ptr(), filt.data_ptr(),
+    with device_scope(dev):  # the C side selects the same device
+        err = lib.lfcc_fwd(x.data_ptr(), tab.data_ptr(), tab.numel(), cs64.data_ptr(),
+                           filt.data_ptr(),
                            ranges.data_ptr(), dct.data_ptr(), out.data_ptr(), b,
-                           dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                           dev.index, raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"lfcc forward launch failed: CUDA error {err} "
                            f"({lib.lfcc_error_string(err).decode()})")

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from adaa_tpu_torch.ops import _build
 from adaa_tpu_torch.ops.layer0 import ieee_f32
+from adaa_tpu_torch.ops.wgmma_layout import cdiv as _cdiv, operand_bytes, swizzle_operand
 
 MAX_BATCH = 65_535  # the kernels count tiles (batch x tiles per sample) in 32-bit ints
 
@@ -128,16 +129,6 @@ DX_SUBTILE = 128  # dx pixels per backward sub-tile: 64 per warpgroup
 # memory allows (segment B's weights take half of it)
 SUBTILES = ((2, 2), (1, 1))
 PIXEL_PAD = 16  # bytes after a staged pixel: an odd number of 16-byte units per pixel
-BOX_K = 64  # k values per 128-byte swizzled row of a packed operand
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def operand_bytes(n: int, k: int) -> int:
-    """Bytes of a packed (n, k) bf16 B operand: 128-byte rows, k padded to 64."""
-    return _cdiv(k, BOX_K) * n * 128
 
 
 class FwdPlan(NamedTuple):
@@ -257,27 +248,6 @@ def forward_columns(spec: SegmentSpec) -> torch.Tensor:
     n = torch.arange(spec.c_out)
     j, q, e = n // 8, (n % 8) // 2, n % 2
     return e * spec.half + q * (spec.c_out // 8) + j
-
-
-def swizzle_operand(b: torch.Tensor) -> torch.Tensor:
-    """(n, k) bf16 -> the flat shared-memory image wgmma reads as a K-major
-    B operand: k padded to a multiple of 64, boxes of n rows x 64 k (128
-    bytes a row), the 16-byte chunk c of row r at chunk c ^ (r % 8)."""
-    n, k = b.shape
-    kp = _cdiv(k, BOX_K) * BOX_K
-    b = F.pad(b, (0, kp - k)).reshape(n, kp // BOX_K, 8, 8).permute(1, 0, 2, 3)
-    chunk = torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)  # (n, 8)
-    idx = chunk[None, :, :, None].expand(b.shape[0], n, 8, 8).to(b.device)
-    return torch.gather(b, 2, idx).contiguous().reshape(-1)
-
-
-def unswizzle_operand(img: torch.Tensor, n: int, k: int) -> torch.Tensor:
-    """The inverse of ``swizzle_operand``: -> (n, k)."""
-    kp = _cdiv(k, BOX_K) * BOX_K
-    b = img.reshape(kp // BOX_K, n, 8, 8)
-    chunk = torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)
-    idx = chunk[None, :, :, None].expand(b.shape[0], n, 8, 8).to(b.device)
-    return torch.gather(b, 2, idx).permute(1, 0, 2, 3).reshape(n, kp)[:, :k]
 
 
 def forward_layout(w: torch.Tensor, spec: SegmentSpec) -> torch.Tensor:

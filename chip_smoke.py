@@ -10,12 +10,15 @@ exit code is not 0:
 1. build the five kernels from ``adaa_tpu_torch/csrc`` (one nvcc per
    source, all at once; timed), with each kernel's ptxas registers and
    spills and, where ``cuobjdump`` exists, the count of wgmma (HGMMA),
-   TMA load (UTMALDG) and setmaxnreg instructions in the trunk and b2n
-   libraries;
-2. the layer-0 kernel against its plain-torch twin at B=256 (bf16):
+   TMA load (UTMALDG) and setmaxnreg instructions in the layer-0, trunk
+   and b2n libraries;
+2. the layer-0 kernels against their plain-torch twin at B=256 (bf16):
    forward outputs bit-equal at >= 99.9% and all within 1 bf16 ulp,
    winner index equal at >= 99.9%, dx relative L2 error < 1e-3; the
-   median time of each (CUDA events) beside the twin's;
+   median time of each (CUDA events) beside the twin's, each kernel's
+   device ms (torch.profiler) and ``library_ms``: cuDNN's bf16 conv
+   1 -> 64 5x5 and its input gradient at the same shape, a yardstick of
+   the conv stage alone (the port never calls it);
 3. the bf16 LCNN at B=256 x 64,600 with the kernel and with the twin:
    finite logits that agree within LOGIT_ATOL;
 4. PGD-10 through ``build_attack("PGD")`` + ``attack_in_wave_space`` at
@@ -24,7 +27,10 @@ exit code is not 0:
    then ``adaa_tpu_torch.bench.measure_torch`` (examples/s);
 5. the fused LFCC kernel against its plain version at B=256, linear
    (LFCC) and mel (MFCC) filterbanks: within atol 5e-4 + rtol 1e-4 (the
-   JAX package's band for its own kernel), medians of both;
+   JAX package's band for its own kernel), medians of both, the kernel's
+   device ms, its bound (the FFT's operations, the filterbank's non-zero
+   weights and the DCT, against x and the cepstra's bytes) and
+   ``dft_bound_ms``, the bound with the TPU kernel's DFT product instead;
 6. the fused trunk kernels against their plain version at B=256,
    segments A and B: forward >= 99.9% bit-equal after the cast to bf16
    and max abs error <= 1e-4 x max |ref| in f32, tie mask >= 99.9% equal
@@ -142,6 +148,22 @@ def randn(rng, shape, scale=1.0, dtype=torch.float32):
     return t.to("cuda").to(dtype)
 
 
+def layer0_library_ms(x, w) -> dict:
+    """cuDNN's bf16 conv 1 -> 64 5x5 (pad 2) at layer 0's shape, and its input
+    gradient from a dense conv-output cotangent: a yardstick of the conv
+    stage alone (no MFM, pool, winner or routing; the port never calls it)."""
+    xb = x.to(torch.bfloat16)[:, None]
+    wb = w.to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dy = torch.randn(x.shape[0], 64, 404, 80, device="cuda", generator=gen).to(torch.bfloat16)
+    return {"fwd": median_ms(lambda: F.conv2d(xb, wb, padding=2)),
+            "bwd": median_ms(lambda: torch.nn.grad.conv2d_input(xb.shape, wb, dy, padding=2))}
+
+
+def layer0_stage(name: str):
+    return "fwd" if "layer0_fwd_kernel" in name else "bwd" if "layer0_dx_kernel" in name else None
+
+
 def phase2_layer0(layer0):
     rng = np.random.default_rng(0)
     x = randn(rng, (B, 404, 80), dtype=torch.bfloat16)
@@ -167,23 +189,34 @@ def phase2_layer0(layer0):
         "bwd_ms": median_ms(lambda: layer0.kernel_bwd(idx_k, g, w, torch.bfloat16)),
         "bwd_plain_ms": median_ms(lambda: layer0.reference_bwd(idx_r, g, w, torch.bfloat16)),
     }
+    device = device_ms(lambda: (layer0.kernel_fwd(x, w, bias, True),
+                                layer0.kernel_bwd(idx_k, g, w, torch.bfloat16)), layer0_stage)
+    library = layer0_library_ms(x, w)
     emit({"phase": 2, "batch": B, "fwd_bit_equal": bit_equal,
           "fwd_max_ulp": int(ulp.max()), "idx_equal": idx_equal,
           "dx_rel_l2": dx_rel, "fwd_max_abs_err": fwd_err,
-          "bwd_max_abs_err": bwd_err, **times})
+          "bwd_max_abs_err": bwd_err, **times, "kernel_ms": device,
+          "library_ms": library,
+          "library_note": "cuDNN bf16 conv 1 -> 64 5x5 and its input gradient at the same "
+                          "shape: a yardstick of the conv stage alone, never called by the port"})
     check(bit_equal >= 0.999, f"forward bit-equal share {bit_equal} < 0.999")
     check(int(ulp.max()) <= 1, f"forward differs by {int(ulp.max())} bf16 ulp")
     check(idx_equal >= 0.999, f"winner index agreement {idx_equal} < 0.999")
     check(dx_rel < 1e-3, f"dx relative L2 error {dx_rel} >= 1e-3")
-    # bytes: x, w, bias, out, idx / idx, g, w, dx; operations: 25 bf16
-    # products per conv output forward, 25 per routed cotangent backward
+    # bytes: x, w, bias, out, idx (uint8, unpacked) / idx, g, w, dx;
+    # operations: 25 bf16 products per conv output and channel forward, 25
+    # per routed cotangent backward
     n_in, n_out = B * 404 * 80, B * 202 * 40 * 32
     w_bytes = 64 * 25 * 4 + 64 * 4
     bounds = {"fwd": bound(2 * n_in + w_bytes + 2 * n_out + n_out,
                            2 * 25 * n_in * 64, "bf16"),
               "bwd": bound(n_out + 2 * n_out + w_bytes + 2 * n_in,
                            2 * 25 * n_out, "bf16")}
-    return fwd_err, bwd_err, times, bounds
+    return fwd_err, bwd_err, times, bounds, library
+
+
+def lfcc_stage(name: str):
+    return "fwd" if "lfcc_kernel" in name else None
 
 
 def phase5_lfcc(lfcc_fused):
@@ -203,21 +236,32 @@ def phase5_lfcc(lfcc_fused):
             "max_band_excess": excess,
             "ms": median_ms(lambda: lfcc_fused.kernel_forward(x, kind)),
             "plain_ms": median_ms(lambda: lfcc_fused.reference_forward(x, kind)),
+            "kernel_ms": device_ms(lambda: lfcc_fused.kernel_forward(x, kind),
+                                   lfcc_stage).get("fwd"),
         }
         check(tuple(out_k.shape) == (B, lfcc_fused.N_CEP, lfcc_fused.N_FRAMES),
               f"lfcc shape {tuple(out_k.shape)}")
         check(bool(torch.isfinite(out_k).all()), f"non-finite {kind} cepstra")
         check(excess <= 0.0, f"{kind} cepstra outside atol {LFCC_ATOL} + rtol {LFCC_RTOL}")
         worst = max(worst, result[kind]["max_abs_err"])
-    emit(result)
-    # the linear filterbank is the main path's; bytes: x, the constant
-    # matrices, out; f32 operations: the DFT on the window's 400 taps, the
-    # filterbank's non-zero weights and the DCT, per frame
+    # the linear filterbank is the main path's. Bytes: x, the constant
+    # tables, out. f32 operations per frame of the function the kernel
+    # computes: the window (400), the 256-point complex FFT (5 N log2 N),
+    # the real split and power (21 per bin), the filterbank's non-zero
+    # weights and the DCT. dft_bound_ms: the same with the TPU kernel's
+    # DFT product on the window's 400 taps in place of the FFT
     nnz = int((lfcc_fused.filterbank_matrix("linear") != 0).sum())
-    n_const = 400 * 512 + 400 + 257 * 128 + 128 * 80
-    per_frame = 400 * 2 * lfcc_fused.N_BINS + nnz + 128 * 80
-    b = bound(4 * (B * lfcc_fused.WAVE_LEN + n_const + B * 80 * 404),
-              2 * B * 404 * per_frame, "f32")
+    n_const = lfcc_fused.TAB_LEN + 2 * 512 * 2 + 257 * 128 + 128 * 2 + 128 * 80
+    io_bytes = 4 * (B * lfcc_fused.WAVE_LEN + n_const + B * 80 * 404)
+    fft = 400 + 5 * 256 * 8 + 21 * lfcc_fused.N_BINS
+    rest = 2 * nnz + 2 * 128 * 80
+    b = bound(io_bytes, B * 404 * (fft + rest), "f32")
+    dft = bound(4 * (B * lfcc_fused.WAVE_LEN + 400 * 512 + 400 + 257 * 128 + 128 * 80
+                     + B * 80 * 404),
+                2 * B * 404 * (400 * 2 * lfcc_fused.N_BINS + nnz + 128 * 80), "f32")
+    result["bound_ms"], result["bound_by"] = b["bound_ms"], b["bound_by"]
+    result["dft_bound_ms"] = dft["bound_ms"]
+    emit(result)
     return worst, result["linear"]["ms"], result["linear"]["plain_ms"], b
 
 
@@ -634,9 +678,9 @@ def main() -> None:
                     if "registers" in ln or "spill" in ln] for name in sources}
     emit({"phase": 1, "build_s": build_s, "ptxas": ptxas,
           "sass_counts": {name: sass_counts(_build.BUILD_DIR / f"lib{name}.so")
-                          for name in ("trunk", "b2n")}})
+                          for name in ("layer0", "trunk", "b2n")}})
 
-    l0_fwd_err, l0_bwd_err, l0_times, l0_bounds = phase2_layer0(layer0)
+    l0_fwd_err, l0_bwd_err, l0_times, l0_bounds, l0_library = phase2_layer0(layer0)
 
     main_path = bench.setup(B, seed=0, device="cuda")
     logits_vs_plain(3, main_path.model, main_path.x)
@@ -683,10 +727,10 @@ def main() -> None:
     emit({"kernels": [
         entry("layer0_fwd", l0_src, "adaa_tpu/ops/pallas_layer0.py:160",
               default_launches["layer0"]["fwd"], l0_fwd_err, l0_times["fwd_ms"],
-              l0_times["fwd_plain_ms"], l0_bounds["fwd"]),
+              l0_times["fwd_plain_ms"], l0_bounds["fwd"], l0_library["fwd"]),
         entry("layer0_bwd", l0_src, "adaa_tpu/ops/pallas_layer0.py:180",
               default_launches["layer0"]["bwd"], l0_bwd_err, l0_times["bwd_ms"],
-              l0_times["bwd_plain_ms"], l0_bounds["bwd"]),
+              l0_times["bwd_plain_ms"], l0_bounds["bwd"], l0_library["bwd"]),
         entry("lfcc_fwd", "adaa_tpu_torch/csrc/lfcc.cu", "adaa_tpu/ops/pallas_lfcc.py:79",
               fused_launches["lfcc"]["fwd"], lfcc_err, lfcc_ms, lfcc_plain_ms, lfcc_bound),
         # trunk times and bounds: segments A + B, one forward of the model

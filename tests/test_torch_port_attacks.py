@@ -32,6 +32,7 @@ import adaa_tpu.ops.pallas_lfcc as jpallas_lfcc
 from adaa_tpu import attacks as jattacks
 from adaa_tpu import models as jmodels
 from adaa_tpu_torch import attacks as tattacks
+from adaa_tpu_torch import models as tmodels
 from tests.torch_port_common import (CFG_BF16, CFG_F32, CFG_FUSED, lcnn_variables,
                                      port_lcnn, waves)
 
@@ -139,18 +140,53 @@ def test_registry_mirrors_jax():
         tattacks.build_attack("NOPE", lambda x: x)
 
 
-def test_attack_leaves_parameters_and_bn_stats_unchanged(variables):
-    model = port_lcnn(CFG_BF16, variables)
+@pytest.mark.parametrize("training,grad", [(True, True), (False, False)],
+                         ids=["train_grad_on", "eval_grad_off"])
+def test_attack_leaves_parameters_and_bn_stats_unchanged(variables, training, grad):
+    """The attack runs the model frozen in eval mode, and gives it back as
+    the caller had it: its ``training`` flags, each parameter's
+    ``requires_grad`` and its state_dict, bit for bit."""
+    model = port_lcnn(CFG_BF16, variables).train(training).requires_grad_(grad)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     atk = tattacks.attack_in_wave_space(
         tattacks.build_attack("PGD", tattacks.make_logits_fn(model), {"steps": 2}))
     x = torch.from_numpy(waves(21))
     adv = atk(x, torch.from_numpy(LABELS), torch.Generator().manual_seed(0))
     assert adv.shape == x.shape and bool(torch.isfinite(adv).all())
-    assert not model.training
-    assert all(not p.requires_grad for p in model.parameters())
+    assert all(m.training == training for m in model.modules())
+    assert all(p.requires_grad == grad for p in model.parameters())
+    assert all(p.grad is None for p in model.parameters())
     for k, v in model.state_dict().items():
         torch.testing.assert_close(v, before[k], rtol=0, atol=0, msg=k)
+
+
+def test_attack_on_a_training_fused_model_matches_a_frozen_copy(variables):
+    """A bf16 LCNN with the fused trunk, held in train() with its parameters
+    requiring grad (an adversarial trainer's live model), goes through the
+    dx-only fused Functions without a raise, and its adversarial waves are
+    bit-equal to those of a frozen eval-mode copy."""
+    cfg = {**CFG_BF16, "fused_trunk": True}
+    live = port_lcnn(cfg, variables).train().requires_grad_(True)
+    frozen = port_lcnn(cfg, variables).eval().requires_grad_(False)
+    x = torch.from_numpy(waves(23))
+    advs = []
+    for model in (live, frozen):
+        atk = tattacks.attack_in_wave_space(
+            tattacks.build_attack("PGD", tattacks.make_logits_fn(model), {"steps": 2}))
+        advs.append(atk(x, torch.from_numpy(LABELS), torch.Generator().manual_seed(3)))
+    assert not torch.equal(advs[0], x)
+    assert torch.equal(advs[0], advs[1])
+    assert live.training and all(p.requires_grad for p in live.parameters())
+
+
+@pytest.mark.parametrize("name", ["lcnn", "rawnet3"])
+def test_get_model_honours_adaa_bf16(monkeypatch, name):
+    """ADAA_BF16=1 chooses the bf16 model, as adaa_tpu.models.get_model does."""
+    cfg = CFG_F32 if name == "lcnn" else {}
+    assert tmodels.get_model(name, cfg).compute_dtype is None
+    monkeypatch.setenv("ADAA_BF16", "1")
+    assert jmodels.get_model(name, cfg).compute_dtype == jnp.bfloat16
+    assert tmodels.get_model(name, cfg).compute_dtype == torch.bfloat16
 
 
 def test_core_functions_match_jax():

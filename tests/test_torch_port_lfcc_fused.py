@@ -25,7 +25,7 @@ import adaa_tpu.ops.pallas_lfcc as pk
 from adaa_tpu.ops import frontends as jfe
 from adaa_tpu_torch.ops import frontends as tfe
 from adaa_tpu_torch.ops import lfcc_fused, stft
-from tests.torch_port_common import waves
+from tests.torch_port_common import lfcc_fft_power, waves
 
 torch.set_num_threads(2)
 
@@ -98,21 +98,12 @@ def test_frontend_dispatch(monkeypatch):
 
 
 def test_kernel_constants_reassemble_the_spectrum():
-    """The CUDA kernel's packed DFT columns (lane l of bin tile j holds
-    re/im of bins 64 j + 2 l and + 1), the Nyquist row and the filter
-    ranges, combined as the kernel combines them."""
+    """The CUDA kernel's FFT table (window and twiddles rounded to f32),
+    combined as the kernel combines them (tests/torch_port_common.py's
+    model of its passes, in f32), gives the spectrogram's power, and the
+    filter ranges hold every non-zero filter weight."""
     x = torch.from_numpy(waves(44))
-    xp = lfcc_fused._reflect_pad(x).numpy().astype(np.float64)
-    off = lfcc_fused.WIN_OFF
-    frames = np.stack([xp[:, t * 160 + off: t * 160 + off + 400] for t in range(404)], axis=1)
-    y = frames @ lfcc_fused._dft_columns().astype(np.float64)  # (B, 404, 512)
-    power = np.zeros((2, 404, 257))
-    for j in range(4):
-        for lane in range(32):
-            for h in range(2):
-                c = 128 * j + 4 * lane + 2 * h
-                power[..., 64 * j + 2 * lane + h] = y[..., c] ** 2 + y[..., c + 1] ** 2
-    power[..., 256] = (frames @ lfcc_fused._nyquist_row().astype(np.float64)) ** 2
+    power = lfcc_fft_power(x.numpy(), np.float32).astype(np.float64)
     ref = stft.spectrogram(x).numpy().transpose(0, 2, 1)
     np.testing.assert_allclose(power, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
     for kind in lfcc_fused.FILTERBANKS:

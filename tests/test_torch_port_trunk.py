@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from adaa_tpu.ops import pallas_trunk as pk
-from adaa_tpu_torch.ops import layer0, trunk
+from adaa_tpu_torch.ops import layer0, trunk, wgmma_layout
 
 torch.set_num_threads(2)
 
@@ -191,9 +191,9 @@ def test_kernel_weight_packing_reassembles_the_conv(spec):
     wb = torch.from_numpy((rng.standard_normal((spec.c_out, spec.c2, 3, 3)) * 0.1)
                           .astype(np.float32))
     wbf = wb.to(torch.bfloat16).float()
-    wf = trunk.unswizzle_operand(trunk.pack_weights(wb, spec, backward=False), spec.c_out,
+    wf = wgmma_layout.unswizzle_operand(trunk.pack_weights(wb, spec, backward=False), spec.c_out,
                                  9 * spec.c2)
-    wd = trunk.unswizzle_operand(trunk.pack_weights(wb, spec, backward=True), spec.c2,
+    wd = wgmma_layout.unswizzle_operand(trunk.pack_weights(wb, spec, backward=True), spec.c2,
                                  9 * spec.c_out)
     nj = spec.c_out // 8
     for n in range(spec.c_out):

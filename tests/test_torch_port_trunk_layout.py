@@ -20,7 +20,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from adaa_tpu_torch.ops import _build, trunk
+from adaa_tpu_torch.ops import _build, trunk, wgmma_layout
 from adaa_tpu_torch.ops.layer0 import ieee_f32
 
 SMS = 132  # an H100's SMs
@@ -49,7 +49,7 @@ def test_operands_round_trip_through_the_swizzle(spec):
                                      9 * spec.c_out)):
         img = trunk.pack_weights(wb, spec, backward)
         assert img.dtype == torch.bfloat16 and img.numel() * 2 == trunk.operand_bytes(n, k)
-        assert torch.equal(trunk.unswizzle_operand(img, n, k), operand)
+        assert torch.equal(wgmma_layout.unswizzle_operand(img, n, k), operand)
         # row r's 16-byte chunk c lies at chunk c ^ (r % 8) of its 128-byte row
         rows = img.reshape(-1, n, 8, 8)
         first = operand[:, :64].reshape(n, 8, 8)
@@ -65,7 +65,7 @@ def test_forward_packing_reassembles_the_conv(spec):
     channel q NJ + j of MFM half h) and pooled in the kernel's order of
     maxima, is the plain forward and its tie mask."""
     am, wb, bb, _ = _data(spec, 2, b=2)
-    wf = trunk.unswizzle_operand(trunk.pack_weights(wb, spec, backward=False), spec.c_out,
+    wf = wgmma_layout.unswizzle_operand(trunk.pack_weights(wb, spec, backward=False), spec.c_out,
                                  9 * spec.c2).double()
     xpad = F.pad(am.to(torch.bfloat16).double(), (0, 0, 1, 1, 1, 1))
     t2, f2 = 2 * spec.t_out, 2 * spec.f_out
@@ -97,7 +97,7 @@ def test_backward_packing_reassembles_the_transposed_conv(spec):
     """dx[t][f] = sum over taps and channels of dy[t + 1 - dt][f + 1 - df][co]
     times the unpacked backward operand at k = (3 dt + df) c_out + co."""
     am, wb, bb, g = _data(spec, 3)
-    wd = trunk.unswizzle_operand(trunk.pack_weights(wb, spec, backward=True), spec.c2,
+    wd = wgmma_layout.unswizzle_operand(trunk.pack_weights(wb, spec, backward=True), spec.c2,
                                  9 * spec.c_out).double()
     dy = trunk.reference_dy(trunk.reference_mask(am, wb, bb, spec), g, spec)
     dypad = F.pad(dy.double().permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))  # (B, T+2, F+2, c_out)
