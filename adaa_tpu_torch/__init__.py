@@ -1,10 +1,11 @@
 """adaa_tpu_torch — the PyTorch/CUDA port of adaa_tpu.
 
 Module paths mirror ``adaa_tpu`` (``ops``, ``models``, ``attacks``,
-``utils``) so each module's JAX counterpart is easy to find. The JAX
-package is the reference this port is tested against; this package
-imports ``torch`` and numpy only, never ``jax``, ``flax`` or
-``adaa_tpu``.
+``eval``, ``data``, ``scripts``, ``utils``) so each module's JAX
+counterpart is easy to find. The JAX package is the reference this port
+is tested against; this package imports ``torch``, numpy and scipy
+(``yaml`` only inside the CLIs' ``main``), never ``jax``, ``flax``,
+``sklearn`` or ``adaa_tpu``.
 
 The main path is untargeted PGD-10 on the bf16 LCNN with the LFCC
 frontend (``adaa_tpu_torch.bench.measure_torch``). Its hand-written
@@ -18,4 +19,11 @@ kernel is LCNN's fused first block (``ops/layer0.py`` +
 (``ops/pool.py`` + ``csrc/pool.cu``) and the fused Bottle2neck kernels
 (``ops/b2n.py`` + ``csrc/b2n.cu``). All are built for ``sm_90a`` at
 first use.
+
+The adversarial-evaluation path runs on top: SpecRNet
+(``models/specrnet.py``; its fused frontend is the LFCC kernel), FAB
+(``attacks/fab.py``), the metrics (``metrics.py``, numpy + scipy), the
+loader and synthetic set (``data/``), ``eval.evaluate_nn`` and
+``eval.generate_attacks`` (white-box and transfer), and the evaluation
+CLIs (``python -m adaa_tpu_torch.scripts.<name>``).
 """

@@ -1,9 +1,9 @@
 """Attack registry + builder (port of ``adaa_tpu/attacks/__init__.py``).
 
 ``ATTACK_REGISTRY`` has the JAX registry's keys and parameters, which
-mirror the reference's ``AttackEnum``. FAB and the extra attacks are not
-ported yet: building one raises ``NotImplementedError`` (see
-ROADMAP.md, queue 1).
+mirror the reference's ``AttackEnum``: FGSM, PGD, PGDL2 and FAB. The
+extra attacks are not ported yet: building one raises
+``NotImplementedError`` (see ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from adaa_tpu_torch.attacks.core import (  # noqa: F401
     two_class_ce,
     two_class_logits,
 )
+from adaa_tpu_torch.attacks.fab import fab
 from adaa_tpu_torch.attacks.gradient import fgsm, pgd, pgdl2
 
 
@@ -31,8 +32,6 @@ def _not_ported(name: str) -> Callable:
     builder.__name__ = name.lower()
     return builder
 
-
-fab = _not_ported("FAB")
 
 # name -> (builder | None, params) — mirrors AttackEnum (aa_types.py:5-24)
 ATTACK_REGISTRY: Dict[str, Tuple[Optional[Callable], Dict[str, Any]]] = {

@@ -1,7 +1,7 @@
 """Shared building blocks with the JAX package's numerics.
 
-Port of the parts of ``adaa_tpu/models/layers.py`` that LCNN and
-RawNet3 use:
+Port of the parts of ``adaa_tpu/models/layers.py`` that LCNN,
+RawNet3 and SpecRNet use:
 
 * the torch-default initialisers, drawing from an explicit
   ``torch.Generator``;
@@ -16,7 +16,9 @@ RawNet3 use:
   ``nn.LSTM`` names them. cuDNN's ``nn.LSTM`` refuses its backward in
   ``eval()``, and the attacks need the input gradient of a model in
   ``eval()``; the explicit recurrence also follows the JAX math step
-  for step.
+  for step;
+* ``BiGRU``: ``nn.GRU(num_layers, bidirectional=True)`` as the same kind
+  of explicit f32 recurrence, gate order (r, z, n).
 """
 from __future__ import annotations
 
@@ -225,3 +227,65 @@ class BiLSTM(nn.Module):
         ys = torch.stack(outs)  # (T, 2, B, H)
         out = torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1)  # (T, B, 2H)
         return out.transpose(0, 1)
+
+
+class BiGRU(nn.Module):
+    """Multi-layer bidirectional GRU, outputs concatenated: (B, T, D) -> (B, T, 2H).
+
+    The same function as ``nn.GRU(D, H, num_layers, bidirectional=True,
+    batch_first=True)`` and the same parameter names, computed as an
+    explicit recurrence (see ``BiLSTM``), with n = tanh(x_n + r * (W_hn h
+    + b_hn)) as torch has it. Both directions of a layer run in one loop
+    over T, each step one batched (2, B, H) x (2, H, 3H) product.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        g = 3 * hidden_size
+        for layer in range(num_layers):
+            d = input_size if layer == 0 else 2 * hidden_size
+            for sfx in (f"l{layer}", f"l{layer}_reverse"):
+                self.register_parameter(f"weight_ih_{sfx}", nn.Parameter(torch.empty(g, d)))
+                self.register_parameter(f"weight_hh_{sfx}",
+                                        nn.Parameter(torch.empty(g, hidden_size)))
+                self.register_parameter(f"bias_ih_{sfx}", nn.Parameter(torch.empty(g)))
+                self.register_parameter(f"bias_hh_{sfx}", nn.Parameter(torch.empty(g)))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        for p in self.parameters():
+            uniform_init(p, bound, generator)
+
+    def _layer(self, x: torch.Tensor, layer: int) -> torch.Tensor:
+        b, t, _ = x.shape
+        h = self.hidden_size
+
+        def both(name):  # the layer's (forward, reverse) parameters
+            return [getattr(self, f"{name}_l{layer}{sfx}") for sfx in ("", "_reverse")]
+
+        w_ih, b_ih = torch.cat(both("weight_ih")), torch.cat(both("bias_ih"))
+        gx = (torch.matmul(x, w_ih.T) + b_ih).reshape(b, t, 2, 3 * h).permute(2, 1, 0, 3)
+        gates = torch.stack([gx[0], gx[1].flip(0)])  # (2, T, B, 3H), backward reversed
+        w_hh = torch.stack([w.T for w in both("weight_hh")])  # (2, H, 3H)
+        b_hh = torch.stack(both("bias_hh"))[:, None]  # (2, 1, 3H)
+
+        hs = x.new_zeros(2, b, h)
+        outs = []
+        for s in range(t):
+            gh = torch.bmm(hs, w_hh) + b_hh
+            xr, xz, xn = gates[:, s].chunk(3, dim=-1)
+            hr, hz, hn = gh.chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            hs = (1.0 - z) * n + z * hs
+            outs.append(hs)
+        ys = torch.stack(outs)  # (T, 2, B, H)
+        return torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1).transpose(0, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in range(self.num_layers):
+            x = self._layer(x, layer)
+        return x

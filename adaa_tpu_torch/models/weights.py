@@ -1,8 +1,9 @@
 """Weights in and out of the port's models.
 
-``lcnn_state_dict_from_flax`` and ``rawnet3_state_dict_from_flax`` are
-the inverses of ``adaa_tpu/models/torch_import.py``'s
-``lcnn_from_state_dict`` and ``rawnet3_from_state_dict``: they turn the
+``lcnn_state_dict_from_flax``, ``rawnet3_state_dict_from_flax`` and
+``specrnet_state_dict_from_flax`` are the inverses of
+``adaa_tpu/models/torch_import.py``'s ``lcnn_from_state_dict``,
+``rawnet3_from_state_dict`` and ``specrnet_from_state_dict``: they turn the
 JAX model's ``{"params", "batch_stats"}`` tree (as numpy arrays) into a
 ``state_dict`` with the reference's key names, which the port's model
 loads with ``load_state_dict``.
@@ -10,7 +11,8 @@ loads with ``load_state_dict``.
 * 2-D conv kernels HWIO (kh, kw, I, O) -> OIHW (O, I, kh, kw)
 * 1-D conv kernels (K, I, O) -> (O, I, K)
 * linear kernels (I, O) -> (O, I)
-* LSTM weights (D, 4H) -> (4H, D), gate order (i, f, g, o) unchanged
+* LSTM / GRU weights (D, G*H) -> (G*H, D), gate order (i, f, g, o) /
+  (r, z, n) unchanged
 * RawNet3's ``afms.alpha`` (C,) -> (C, 1); the sinc filterbank's
   constant ``window_`` / ``n_`` buffers and the unused ``bn6``, which
   the JAX model does not hold, come from a fresh port model.
@@ -30,13 +32,29 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _conv2d(sd, key: str, params) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(params["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{key}.bias"] = _t(params["bias"])
+
+
+def _linear(sd, key: str, params) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(params["kernel"]).T)
+    sd[f"{key}.bias"] = _t(params["bias"])
+
+
+def _rnn_dir(sd, prefix: str, sfx: str, params) -> None:
+    """One direction of one LSTM / GRU layer (``sfx``: ``l0``, ``l1_reverse``, ...)."""
+    for name in ("weight_ih", "weight_hh"):
+        sd[f"{prefix}.{name}_{sfx}"] = _t(np.asarray(params[name]).T)
+    for name in ("bias_ih", "bias_hh"):
+        sd[f"{prefix}.{name}_{sfx}"] = _t(params[name])
+
+
 def lcnn_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
     for i in CONVS:
-        p = params[f"conv{i}"]
-        sd[f"m_transform.{i}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"m_transform.{i}.bias"] = _t(p["bias"])
+        _conv2d(sd, f"m_transform.{i}", params[f"conv{i}"])
     for i in BNS:
         s = stats[f"bn{i}"]
         sd[f"m_transform.{i}.running_mean"] = _t(s["mean"])
@@ -44,14 +62,8 @@ def lcnn_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tens
         sd[f"m_transform.{i}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     for j in (0, 1):
         for sfx, direction in (("l0", "fwd"), ("l0_reverse", "bwd")):
-            p = params[f"blstm{j}"][direction]
-            prefix = f"m_before_pooling.{j}.l_blstm"
-            sd[f"{prefix}.weight_ih_{sfx}"] = _t(np.asarray(p["weight_ih"]).T)
-            sd[f"{prefix}.weight_hh_{sfx}"] = _t(np.asarray(p["weight_hh"]).T)
-            sd[f"{prefix}.bias_ih_{sfx}"] = _t(p["bias_ih"])
-            sd[f"{prefix}.bias_hh_{sfx}"] = _t(p["bias_hh"])
-    sd["m_output_act.weight"] = _t(np.asarray(params["output"]["kernel"]).T)
-    sd["m_output_act.bias"] = _t(params["output"]["bias"])
+            _rnn_dir(sd, f"m_before_pooling.{j}.l_blstm", sfx, params[f"blstm{j}"][direction])
+    _linear(sd, "m_output_act", params["output"])
     return sd
 
 
@@ -89,15 +101,36 @@ def rawnet3_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.T
         if "residual" in p:
             _conv1d(sd, f"{name}.residual.0", p["residual"])
         sd[f"{name}.afms.alpha"] = _t(np.asarray(p["afms"]["alpha"]).reshape(-1, 1))
-        sd[f"{name}.afms.fc.weight"] = _t(np.asarray(p["afms"]["fc"]["kernel"]).T)
-        sd[f"{name}.afms.fc.bias"] = _t(p["afms"]["fc"]["bias"])
+        _linear(sd, f"{name}.afms.fc", p["afms"]["fc"])
     _conv1d(sd, "layer4", params["layer4"])
     _conv1d(sd, "attention.0", params["attention_0"])
     _bn(sd, "attention.2", params["attention_2"], stats["attention_2"])
     _conv1d(sd, "attention.3", params["attention_3"])
     _bn(sd, "bn5", params["bn5"], stats["bn5"])
-    sd["fc6.weight"] = _t(np.asarray(params["fc6"]["kernel"]).T)
-    sd["fc6.bias"] = _t(params["fc6"]["bias"])
+    _linear(sd, "fc6", params["fc6"])
+    return sd
+
+
+def specrnet_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _bn(sd, "first_bn", params["first_bn"], stats["first_bn"])
+    for blk in ("block0", "block2", "block4"):
+        p, s = params[blk], stats[blk]
+        if "bn1" in p:
+            _bn(sd, f"{blk}.0.bn1", p["bn1"], s["bn1"])
+        for conv in ("conv1", "conv2", "conv_downsample"):
+            if conv in p:
+                _conv2d(sd, f"{blk}.0.{conv}", p[conv])
+        _bn(sd, f"{blk}.0.bn2", p["bn2"], s["bn2"])
+    for i in (0, 2, 4):
+        _linear(sd, f"fc_attention{i}.0", params[f"fc_attention{i}"])
+    _bn(sd, "bn_before_gru", params["bn_before_gru"], stats["bn_before_gru"])
+    for layer in (0, 1):
+        for sfx, direction in ((f"l{layer}", "fwd"), (f"l{layer}_reverse", "bwd")):
+            _rnn_dir(sd, "gru", sfx, params["gru"][f"l{layer}_{direction}"])
+    _linear(sd, "fc1_gru", params["fc1_gru"])
+    _linear(sd, "fc2_gru", params["fc2_gru"])
     return sd
 
 

@@ -4,11 +4,15 @@ Run on the card from the repository root:
 
     python -m adaa_tpu_torch.utils.profiling --out profile_pgd10.json [--fused]
     python -m adaa_tpu_torch.utils.profiling --model rawnet3 [--config pool|b2n] --out ...
+    python -m adaa_tpu_torch.utils.profiling --model specrnet [--fused] --out ...
+    python -m adaa_tpu_torch.utils.profiling --attack FAB [--batch 64] --out ...
 
-It warms up, then profiles one attacked batch of PGD-10
-(``adaa_tpu_torch.bench.setup``): on the bf16 LCNN+LFCC at batch 256
-(its fused configuration with ``--fused``), or on the bf16 RawNet3 at
-batch 64 (with the pool or the b2n kernel with ``--config``), and writes a
+It warms up, then profiles one attacked batch of PGD-10 (or ``--attack``,
+a registry name; ``adaa_tpu_torch.bench.setup``): on the bf16 LCNN+LFCC
+at batch 256 (its fused configuration with ``--fused``), on the bf16
+RawNet3 at batch 64 (with the pool or the b2n kernel with ``--config``),
+or on the bf16 SpecRNet at batch 64 (the fused LFCC with ``--fused``),
+and writes a
 JSON summary: without the profiler, the host time to enqueue one batch
 and its wall time; under the profiler, the batch's wall time (inflated
 by the profiler's own host cost), device busy time (the union of
@@ -51,10 +55,11 @@ def _busy_us(intervals: List[tuple]) -> float:
 
 def profile_attack(batch: Optional[int] = None, seed: int = 0, top: int = 30,
                    fused: bool = False, model: str = "lcnn",
-                   config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                   config: Optional[Dict[str, Any]] = None,
+                   attack_name: str = "PGD") -> Dict[str, Any]:
     from adaa_tpu_torch import bench
 
-    _, attack, x, y, gen = bench.setup(batch, seed, "cuda", fused, model, config)
+    _, attack, x, y, gen = bench.setup(batch, seed, "cuda", fused, model, config, attack_name)
     batch = x.shape[0]
     for _ in range(2):
         attack(x, y, gen)
@@ -91,6 +96,7 @@ def profile_attack(batch: Optional[int] = None, seed: int = 0, top: int = 30,
                    for k, v in by_kernel.items()), key=lambda r: -r["ms"])
     return {
         "model": model,
+        "attack": attack_name,
         "batch": batch,
         "fused": fused,
         "config": config,
@@ -109,11 +115,13 @@ def profile_attack(batch: Optional[int] = None, seed: int = 0, top: int = 30,
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=None,
-                        help="default: the model's batch (256 LCNN, 64 RawNet3)")
+                        help="default: the model's batch (256 LCNN, 64 RawNet3 and SpecRNet)")
     parser.add_argument("--out", default="profile_pgd10.json")
-    parser.add_argument("--model", choices=("lcnn", "rawnet3"), default="lcnn")
+    parser.add_argument("--model", choices=("lcnn", "rawnet3", "specrnet"), default="lcnn")
+    parser.add_argument("--attack", default="PGD", help="a registry attack (default: PGD)")
     parser.add_argument("--fused", action="store_true",
-                        help="LCNN's fused configuration (fused LFCC + fused trunk segments)")
+                        help="LCNN's fused configuration (fused LFCC + fused trunk segments); "
+                             "SpecRNet's fused LFCC")
     parser.add_argument("--config", choices=("default", "pool", "b2n"), default="default",
                         help="RawNet3's configuration: no kernel, the pool kernel or the b2n kernel")
     args = parser.parse_args()
@@ -125,12 +133,15 @@ def main() -> None:
     if args.model == "rawnet3":
         config = {"default": bench.RAWNET3_CONFIG, "pool": bench.RAWNET3_POOL_CONFIG,
                   "b2n": bench.RAWNET3_B2N_CONFIG}[args.config]
+    elif args.model == "specrnet":
+        config = bench.SPECRNET_FUSED_CONFIG if args.fused else bench.SPECRNET_CONFIG
     result = {"card": card_line(),
-              **profile_attack(args.batch, fused=args.fused, model=args.model, config=config)}
+              **profile_attack(args.batch, fused=args.fused, model=args.model, config=config,
+                               attack_name=args.attack)}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
-    brief = {k: result[k] for k in ("card", "model", "batch", "fused", "config",
+    brief = {k: result[k] for k in ("card", "model", "attack", "batch", "fused", "config",
                                     "unprofiled_enqueue_ms",
                                     "unprofiled_wall_ms", "wall_ms", "device_busy_ms",
                                     "device_idle_share", "kernel_launches")}

@@ -66,12 +66,35 @@ exit code is not 0:
     kernel in the default; pool forward >= 10 and backward == 10 (no b2n)
     in the pool configuration; b2n forward >= 30 and backward == 30 (no
     pool) in the b2n configuration; then examples/s of all three.
+14. PGD-10 on the bf16 SpecRNet at B=64 x 64,600 (``bench.setup(model=
+    "specrnet")``) in its default configuration (no kernel launched) and
+    its fused-frontend one (>= 10 LFCC launches, no other kernel), checked
+    as in phase 4; the fused configuration's logits against the plain
+    frontend within SPECRNET_LOGIT_ATOL; examples/s of both;
+15. the registry's FAB (Linf, 100 steps, eta 10, eps 0.3) on the bf16
+    LCNN at B=64 x 64,600 through ``build_attack`` + ``attack_in_wave_space``,
+    with the reference-exact step and with ``ADAA_FAB_MERGED=1``: in [0, 1]
+    space every output finite and in the box, each row equal to its input
+    or misclassified within Linf 0.3; layer-0 launches 100 backward and
+    >= 200 (merged: >= 100) forward; success rate, median Linf of the
+    successful rows and examples/s of both steps;
+16. ``evaluate_nn`` and ``generate_attacks`` on the synthetic set (n=128,
+    64,600 samples, batch 64): the bf16 SpecRNet's clean report; FGSM
+    white-box on the bf16 LCNN (adversarial accuracy not above the clean
+    accuracy of the same batches by more than one sample's share); PGD
+    transfer from an LCNN surrogate to a SpecRNet victim, once with a
+    callback (its first batch's victim predictions equal to a direct
+    recomputation with a generator of the same seed) and once through the
+    adversarial CLI's config-dict entry; every report with its six keys
+    and finite accuracy/precision/recall/F1, and the layer-0 kernel
+    launched in the LCNN-surrogate runs.
 
 The last lines are the kernels' JSON summary (all nine kernel entries),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import shutil
@@ -105,6 +128,11 @@ RB = 64  # RawNet3's batch: the JAX package's rawnet3:PGD record
 B2N_Y_BIT_EQUAL, B2N_Y_MEAN_REL, B2N_DX_REL_L2 = 0.97, 1e-4, 5e-3
 # kernel vs plain logits of the b2n configuration at B=64 (measured 1.5e-4)
 RAWNET3_LOGIT_ATOL = 5e-4
+# fused vs plain LFCC under the bf16 SpecRNet at B=64: first_bn rounds cepstra
+# of magnitude ~100 to bf16 (ulp 0.5), so LFCC differences inside its band flip
+# whole ulps. The JAX package's own kernel-vs-XLA gap on its bf16 SpecRNet is
+# 3.4e-4 at B=64 (CPU, interpret mode); this port measured 4.1e-4 on an H100
+SPECRNET_LOGIT_ATOL = 1e-3
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -622,6 +650,200 @@ def rawnet3_phases(attacks, bench, pool, b2n, card) -> dict:
     return launches
 
 
+ALL_KERNELS = ("layer0", "lfcc", "trunk", "pool", "b2n")
+FAB_EPS = 0.3  # the registry's FAB: Linf, default eps
+
+
+def zero(counters) -> None:
+    for counts in counters.values():
+        for k in counts:
+            counts[k] = 0
+
+
+def snapshot(counters) -> dict:
+    return {name: dict(counts) for name, counts in counters.items()}
+
+
+def launched(launches: dict, names) -> bool:
+    """Whether any kernel of ``names`` was launched."""
+    return any(v for name in names for v in launches[name].values())
+
+
+def phase14_specrnet(attacks, bench, counters, card) -> dict:
+    """PGD-10 on the bf16 SpecRNet at B=64, default and fused frontend."""
+    configs = {"default": bench.SPECRNET_CONFIG, "fused": bench.SPECRNET_FUSED_CONFIG}
+    launches = {}
+    for name, config in configs.items():
+        path = bench.setup(RB, seed=0, device="cuda", model="specrnet", config=config)
+        if name == "fused":
+            logits_vs_plain(14, path.model, path.x, SPECRNET_LOGIT_ATOL)
+        got = attack_checked(14, attacks, path, counters)
+        launches[name] = got
+        others = [k for k in ALL_KERNELS if k != "lfcc"]
+        want = {"default": not launched(got, ALL_KERNELS),
+                "fused": got["lfcc"]["fwd"] >= 10 and not launched(got, others)}[name]
+        check(want, f"SpecRNet {name} configuration launches {got}")
+        del path
+        torch.cuda.empty_cache()
+    eps = {name: bench.measure_torch(batch=RB, iters=5, warmup=1, model="specrnet", config=config)
+           for name, config in configs.items()}
+    emit({"phase": 14, "metric": "adv_examples_per_sec_pgd10_specrnet", **eps, "batch": RB,
+          "card": card})
+    return launches
+
+
+def phase15_fab(attacks, bench, counters, card) -> dict:
+    """The registry's FAB on the bf16 LCNN at B=64, both steps, checked in
+    [0, 1] space on what the attack returned inside ``attack_in_wave_space``."""
+    path = bench.setup(RB, seed=0, device="cuda", model="lcnn", config=bench.CONFIG)
+    logits_fn = attacks.make_logits_fn(path.model)
+    out = {"phase": 15, "batch": RB, "eps": FAB_EPS, "card": card}
+    before = os.environ.get("ADAA_FAB_MERGED")
+    try:
+        for step in ("reference_exact", "merged"):
+            if step == "merged":
+                os.environ["ADAA_FAB_MERGED"] = "1"
+            else:
+                os.environ.pop("ADAA_FAB_MERGED", None)
+            fab01 = attacks.build_attack("FAB", logits_fn)  # reads ADAA_FAB_MERGED
+            seen = {}
+
+            def recorded(x01, y, generator):
+                seen["x01"], seen["adv01"] = x01, fab01(x01, y, generator)
+                return seen["adv01"]
+
+            zero(counters)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            adv = attacks.attack_in_wave_space(recorded)(path.x, path.y, path.generator)
+            end.record()
+            end.synchronize()
+            got = snapshot(counters)
+            x01, adv01 = seen["x01"], seen["adv01"]
+            with torch.no_grad():
+                fooled = attacks.predicted_label(logits_fn(adv01)) != path.y
+            linf = (adv01 - x01).abs().amax(dim=1)
+            same = (adv01 == x01).all(dim=1)
+            ok = same | (fooled & (linf <= FAB_EPS + 1e-6))
+            success = ~same
+            fwd_min = 200 if step == "reference_exact" else 100
+            res = {"success_rate": float(success.float().mean()),
+                   "median_linf_successful": (float(linf[success].median())
+                                              if bool(success.any()) else None),
+                   "examples_per_sec": RB / (start.elapsed_time(end) / 1e3),
+                   "launches": got}
+            out[step] = res
+            check(tuple(adv.shape) == tuple(path.x.shape), f"FAB {step}: shape {tuple(adv.shape)}")
+            check(bool(torch.isfinite(adv01).all()), f"FAB {step}: non-finite outputs")
+            check(float(adv01.min()) >= 0.0 and float(adv01.max()) <= 1.0,
+                  f"FAB {step}: outside [0, 1]")
+            check(bool(ok.all()), f"FAB {step}: rows neither unchanged nor misclassified within "
+                                  f"eps: {torch.nonzero(~ok).flatten().tolist()}")
+            check(got["layer0"]["bwd"] == 100 and got["layer0"]["fwd"] >= fwd_min
+                  and not launched(got, [k for k in ALL_KERNELS if k != "layer0"]),
+                  f"FAB {step}: launches {got}")
+    finally:
+        if before is None:
+            os.environ.pop("ADAA_FAB_MERGED", None)
+        else:
+            os.environ["ADAA_FAB_MERGED"] = before
+    emit(out)
+    return out
+
+
+def report_ok(what: str, report: dict) -> None:
+    keys = ("eer", "accuracy", "precision", "recall", "f1_score", "auc")
+    check(set(report) == set(keys), f"{what}: report keys {sorted(report)}")
+    check(all(np.isfinite(report[k]) for k in ("accuracy", "precision", "recall", "f1_score")),
+          f"{what}: non-finite report {report}")
+
+
+def phase16_eval(attacks, bench, models, counters, set_seed) -> None:
+    """evaluate_nn and generate_attacks (white-box, transfer, the CLI's
+    config-dict entry) on the synthetic set, n=128, batch 64."""
+    from adaa_tpu_torch import metrics
+    from adaa_tpu_torch.data.synthetic import SyntheticDataset
+    from adaa_tpu_torch.eval import evaluate_nn, generate_attacks
+    from adaa_tpu_torch.scripts import evaluate_models_on_adversarial_attacks as adv_cli
+
+    seed = 16
+    ds = SyntheticDataset(n=128, subset="val", return_meta=True)
+    gen = set_seed(seed, "cuda")
+    spec = models.init_model(models.get_model("specrnet", bench.SPECRNET_CONFIG), gen, "cuda")
+    lcnn = models.init_model(models.get_model("lcnn", bench.CONFIG), gen, "cuda")
+    out = {"phase": 16, "n": len(ds), "batch": RB}
+
+    np.random.seed(seed)
+    clean_spec = evaluate_nn(spec, ds, batch_size=RB, model_name="specrnet")
+    np.random.seed(seed)
+    clean_lcnn = generate_attacks(lcnn, ds, "NO_ATTACK", lcnn, RB)
+    zero(counters)
+    np.random.seed(seed)
+    white = generate_attacks(lcnn, ds, "FGSM", lcnn, RB)
+    white_launches = snapshot(counters)
+
+    first = {}
+
+    def on_attack_end(**kw):
+        first.setdefault("kw", kw)
+
+    # the recomputation must repeat generate_attacks' first batch bit for bit:
+    # cuDNN's deterministic algorithms in both (some dgrad ones use atomics)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero(counters)
+        np.random.seed(seed)
+        transfer = generate_attacks(spec, ds, "PGD", lcnn, RB,
+                                    generator=torch.Generator("cuda").manual_seed(seed),
+                                    on_attack_end_callback=on_attack_end)
+        transfer_launches = snapshot(counters)
+        kw = first["kw"]
+        x = torch.from_numpy(kw["batch_x"]).cuda()
+        y = torch.from_numpy(kw["batch_y"]).cuda().long()
+        attack = attacks.attack_in_wave_space(
+            attacks.build_attack("PGD", attacks.make_logits_fn(lcnn)))
+        adv = attack(x, y, torch.Generator("cuda").manual_seed(seed))
+        spec.eval()
+        with torch.no_grad():
+            preds = torch.sigmoid(spec(adv).squeeze(1)).cpu().numpy()
+        spec.train()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    recompute_err = float(np.abs(preds - kw["batch_preds"]).max())
+
+    zero(counters)
+    args = adv_cli.parse_args(["--asv_path", f"synthetic:{len(ds)}", "--attack", "PGD"])
+    victim_cfg = {"data": {"seed": seed},
+                  "model": {"name": "specrnet", "parameters": bench.SPECRNET_CONFIG}}
+    surrogate_cfg = {"data": {"seed": seed}, "model": {"name": "lcnn", "parameters": bench.CONFIG}}
+    cli_report = adv_cli.run(args, victim_cfg, surrogate_cfg)
+    cli_launches = snapshot(counters)
+
+    reports = {"eval_specrnet": clean_spec, "clean_lcnn": clean_lcnn, "whitebox_fgsm_lcnn": white,
+               "transfer_pgd_lcnn_to_specrnet": transfer, "cli_transfer_pgd": cli_report}
+    out.update({"reports": reports, "recompute_max_abs_err": recompute_err,
+                "launches": {"whitebox": white_launches, "transfer": transfer_launches,
+                             "cli": cli_launches}})
+    emit(out)
+    for line in (metrics.format_metrics("eval", clean_spec),
+                 metrics.format_metrics("adv_eval", white),
+                 metrics.format_metrics("adv_eval", cli_report)):
+        print(line, flush=True)
+    for what, report in reports.items():
+        report_ok(what, report)
+    share = 100.0 / len(ds)
+    check(white["accuracy"] <= clean_lcnn["accuracy"] + share + 1e-9,
+          f"white-box FGSM accuracy {white['accuracy']} above clean {clean_lcnn['accuracy']}")
+    check(np.array_equal(preds, kw["batch_preds"]),
+          f"callback predictions differ from the recomputation by {recompute_err}")
+    check(white_launches["layer0"]["bwd"] == 2 and white_launches["layer0"]["fwd"] >= 2,
+          f"white-box layer-0 launches {white_launches}")
+    for what, got in (("transfer", transfer_launches), ("cli", cli_launches)):
+        check(got["layer0"]["bwd"] == 20 and got["layer0"]["fwd"] >= 20,
+              f"{what} layer-0 launches {got}")
+
+
 def phase9_highest_gradient(attacks, models, set_seed) -> None:
     """The f32-highest input gradient with torch's default TF32 flags vs the
     same gradient with TF32 off globally; cuDNN deterministic in both, so
@@ -666,7 +888,9 @@ def main() -> None:
 
     card = card_line()
     print(card, flush=True)
-    emit({"phase": 0, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit({"phase": 0, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "installed": {m: importlib.util.find_spec(m) is not None
+                        for m in ("yaml", "sklearn", "pandas", "scipy")}})
 
     sources = ("layer0", "lfcc", "trunk", "pool", "b2n")
     t0 = time.perf_counter()
@@ -716,6 +940,10 @@ def main() -> None:
     pool_main = phase10_pool(pool)
     b2n_tot, b2n_bounds = phase11_b2n(b2n, rawnet3)
     r3_launches = rawnet3_phases(attacks, bench, pool, b2n, card)
+    all_counters = {**counters, "pool": pool.LAUNCHES, "b2n": b2n.LAUNCHES}
+    phase14_specrnet(attacks, bench, all_counters, card)
+    phase15_fab(attacks, bench, all_counters, card)
+    phase16_eval(attacks, bench, models, all_counters, set_seed)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

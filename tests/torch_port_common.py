@@ -1,11 +1,13 @@
-"""Shared pieces of the adaa_tpu_torch tests: one set of LCNN weights,
-made with numpy from a seed, for the JAX model and its torch port."""
+"""Shared pieces of the adaa_tpu_torch tests: sets of LCNN and SpecRNet
+weights, made with numpy from a seed, for the JAX models and their torch
+ports."""
 import numpy as np
 import torch
 
 from adaa_tpu_torch import models as tmodels
 from adaa_tpu_torch.models.lcnn import BNS, CONVS
-from adaa_tpu_torch.models.weights import lcnn_state_dict_from_flax
+from adaa_tpu_torch.models.weights import (lcnn_state_dict_from_flax,
+                                           specrnet_state_dict_from_flax)
 
 CFG_F32 = {"input_channels": 1, "frontend_algorithm": ["lfcc"]}
 CFG_BF16 = {**CFG_F32, "compute_dtype": "bfloat16"}
@@ -51,6 +53,60 @@ def port_lcnn(cfg, variables) -> torch.nn.Module:
     """The port's LCNN in eval() carrying the JAX variables."""
     model = tmodels.get_model("lcnn", cfg)
     model.load_state_dict(lcnn_state_dict_from_flax(variables))
+    return model.eval()
+
+
+def specrnet_variables(seed: int = 0):
+    """The JAX SpecRNet's {"params", "batch_stats"} tree as numpy arrays:
+    weights uniform within torch's default bounds, non-zero biases, BN
+    affines near 1 / 0 and randomised running stats (as ``lcnn_variables``)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def uni(shape, bound):
+        return rng.uniform(-bound, bound, shape).astype(f32)
+
+    def conv(k, cin, cout):
+        return {"kernel": uni((k, k, cin, cout), 1 / np.sqrt(k * k * cin)), "bias": uni((cout,), 0.1)}
+
+    def bn(c):
+        return ({"scale": rng.uniform(0.5, 1.5, c).astype(f32), "bias": uni((c,), 0.1)},
+                {"mean": (rng.standard_normal(c) * 0.1).astype(f32),
+                 "var": rng.uniform(0.5, 2.0, c).astype(f32)})
+
+    def dense(cin, cout):
+        return {"kernel": uni((cin, cout), 1 / np.sqrt(cin)), "bias": uni((cout,), 1 / np.sqrt(cin))}
+
+    params, stats = {}, {}
+    params["first_bn"], stats["first_bn"] = bn(1)
+    for name, cin, cout in (("block0", 1, 20), ("block2", 20, 64), ("block4", 64, 64)):
+        p, s = {"conv1": conv(3, cin, cout), "conv2": conv(3, cout, cout)}, {}
+        p["bn2"], s["bn2"] = bn(cout)
+        if name != "block0":
+            p["bn1"], s["bn1"] = bn(cin)
+        if cin != cout:
+            p["conv_downsample"] = conv(1, cin, cout)
+        params[name], stats[name] = p, s
+    for i, c in ((0, 20), (2, 64), (4, 64)):
+        params[f"fc_attention{i}"] = dense(c, c)
+    params["bn_before_gru"], stats["bn_before_gru"] = bn(64)
+    hidden = 64
+    params["gru"] = {
+        f"l{layer}_{d}": {"weight_ih": uni((64 if layer == 0 else 128, 3 * hidden), 1 / 8),
+                          "weight_hh": uni((hidden, 3 * hidden), 1 / 8),
+                          "bias_ih": uni((3 * hidden,), 1 / 8),
+                          "bias_hh": uni((3 * hidden,), 1 / 8)}
+        for layer in (0, 1) for d in ("fwd", "bwd")
+    }
+    params["fc1_gru"] = dense(128, 128)
+    params["fc2_gru"] = dense(128, 1)
+    return {"params": params, "batch_stats": stats}
+
+
+def port_specrnet(cfg, variables) -> torch.nn.Module:
+    """The port's SpecRNet in eval() carrying the JAX variables."""
+    model = tmodels.get_model("specrnet", cfg)
+    model.load_state_dict(specrnet_state_dict_from_flax(variables))
     return model.eval()
 
 
