@@ -1,11 +1,11 @@
 """adaa_tpu_torch — the PyTorch/CUDA port of adaa_tpu.
 
 Module paths mirror ``adaa_tpu`` (``ops``, ``models``, ``attacks``,
-``eval``, ``data``, ``scripts``, ``utils``) so each module's JAX
+``eval``, ``data``, ``training``, ``scripts``, ``utils``) so each module's JAX
 counterpart is easy to find. The JAX package is the reference this port
 is tested against; this package imports ``torch``, numpy and scipy
-(``yaml`` only inside the CLIs' ``main``), never ``jax``, ``flax``,
-``sklearn`` or ``adaa_tpu``.
+(``yaml`` only inside the CLIs' functions), never ``jax``, ``flax``,
+``optax``, ``sklearn`` or ``adaa_tpu``.
 
 The main path is untargeted PGD-10 on the bf16 LCNN with the LFCC
 frontend (``adaa_tpu_torch.bench.measure_torch``). Its hand-written
@@ -26,4 +26,10 @@ The adversarial-evaluation path runs on top: SpecRNet
 loader and synthetic set (``data/``), ``eval.evaluate_nn`` and
 ``eval.generate_attacks`` (white-box and transfer), and the evaluation
 CLIs (``python -m adaa_tpu_torch.scripts.<name>``).
+
+Training runs on the same models: ``training`` (Adam with the
+warm-restart schedule, ``GDTrainer``, the adversarial trainers and their
+five strategies, whose self-attack runs the eval-mode kernels on the
+live weights), ``utils.checkpoints`` and the two training CLIs.
+``bench.measure_torch_train`` times one adversarial-training step.
 """

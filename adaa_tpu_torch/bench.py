@@ -25,6 +25,15 @@ of the JAX package's ``specrnet:PGD`` record): ``SPECRNET_CONFIG`` (no
 kernel) or ``SPECRNET_FUSED_CONFIG`` (the fused LFCC kernel). ``attack``
 names another registry attack for the same entry points (``"FAB"``: the
 registry's FAB, Linf, 100 steps, eta 10).
+
+``measure_torch_train`` is the counterpart of ``scripts/bench_train.py``:
+one ONLY_ADV adversarial-training step, FGSM (the registry's, eps 5e-4)
+self-attack on the live weights and then the BCE/Adam update (lr 1e-4),
+on the LCNN+LFCC at batch 256 of 64,600-sample waves, bf16
+(``TRAIN_CONFIGS["bf16"]``: the attack runs the layer-0 kernel) or f32,
+through the trainer's own pieces (``training.adv_trainer.make_adv_fn``,
+``training.gd_trainer.train_step``). It too is timed with CUDA events
+after warm-up and has no CPU path.
 """
 from __future__ import annotations
 
@@ -51,6 +60,8 @@ SPECRNET_CONFIG = {"input_channels": 1, "frontend_algorithm": ["lfcc"],
 SPECRNET_FUSED_CONFIG = {**SPECRNET_CONFIG, "fused_frontend": True}
 DEFAULTS = {"lcnn": (BATCH, CONFIG), "rawnet3": (RAWNET3_BATCH, RAWNET3_CONFIG),
             "specrnet": (SPECRNET_BATCH, SPECRNET_CONFIG)}
+TRAIN_CONFIGS = {"bf16": CONFIG, "f32": {**CONFIG, "compute_dtype": None}}
+TRAIN_LR = 1e-4  # scripts/bench_train.py's
 
 
 class MainPath(NamedTuple):
@@ -104,3 +115,63 @@ def measure_torch(batch: Optional[int] = None, iters: int = 10, warmup: int = 2,
     end.record()
     end.synchronize()
     return batch * iters / (start.elapsed_time(end) / 1e3)
+
+
+class TrainPath(NamedTuple):
+    state: Any  # training.train_state.TrainState of the model being trained
+    adv_fn: Callable  # (waves, labels) -> adversarial waves, on the live model
+    x: torch.Tensor  # (B, WAVE_LEN) seeded waves
+    y: torch.Tensor  # (B,) int32 labels, as the loader gives them
+    acc: torch.Tensor  # the trainer's (2,) [loss_sum, correct] accumulator
+
+
+def setup_train(batch: int = BATCH, seed: int = 0, device: str = "cuda",
+                model: str = "lcnn", config: Optional[Dict[str, Any]] = None,
+                optimizer_kwargs: Optional[Dict[str, Any]] = None,
+                use_scheduler: bool = False, batches_per_epoch: Optional[int] = None,
+                scheduler_t0_epochs: int = 1) -> TrainPath:
+    """A model to train (LCNN bf16 by default) with Adam (and the warm-restart
+    schedule with ``use_scheduler``), the registry's FGSM on its live
+    weights, and a batch of seeded waves."""
+    from adaa_tpu_torch.training import adv_trainer, train_state
+
+    gen = set_seed(seed, device)
+    net = models.init_model(models.get_model(model, config or TRAIN_CONFIGS["bf16"]), gen, device)
+    state = train_state.create_train_state(net, optimizer_kwargs or {"lr": TRAIN_LR},
+                                           use_scheduler, batches_per_epoch,
+                                           scheduler_t0_epochs)
+    adv_fn = adv_trainer.make_adv_fn("FGSM", net, gen)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((batch, WAVE_LEN)).astype(np.float32))
+    y = torch.from_numpy((np.arange(batch) % 2).astype(np.int32))
+    return TrainPath(state, adv_fn, x.to(device), y.to(device), torch.zeros(2, device=device))
+
+
+def adv_train_step(path: TrainPath) -> torch.Tensor:
+    """One ONLY_ADV step: the attack on the live weights, then BCE/Adam."""
+    from adaa_tpu_torch.training.gd_trainer import train_step
+
+    return train_step(path.state, path.adv_fn(path.x, path.y), path.y, path.acc)
+
+
+def measure_torch_train(batch: int = BATCH, iters: int = 10, warmup: int = 2, seed: int = 0,
+                        dtype: str = "bf16") -> Dict[str, float]:
+    """``adv_train_fgsm_bce_{dtype}`` on cuda:0: ms per step, examples/s,
+    peak device memory of the timed steps and their last loss."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("measure_torch_train needs a CUDA device")
+    path = setup_train(batch, seed, "cuda", config=TRAIN_CONFIGS[dtype])
+    for _ in range(warmup):
+        adv_train_step(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        loss = adv_train_step(path)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    return {"ms_per_step": ms, "examples_per_sec": batch / (ms / 1e3), "batch": batch,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "loss": float(loss)}

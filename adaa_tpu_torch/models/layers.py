@@ -18,11 +18,15 @@ RawNet3 and SpecRNet use:
   ``eval()``; the explicit recurrence also follows the JAX math step
   for step;
 * ``BiGRU``: ``nn.GRU(num_layers, bidirectional=True)`` as the same kind
-  of explicit f32 recurrence, gate order (r, z, n).
+  of explicit f32 recurrence, gate order (r, z, n);
+* ``batch_norm``: flax's ``nn.BatchNorm`` on a channels-last tensor, in
+  train and in eval, its running statistics held in an ``nn.BatchNorm*d``
+  (whose keys the reference's ``state_dict`` has).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -172,6 +176,50 @@ def mfm_pool_2d(x: torch.Tensor) -> torch.Tensor:
     if x.shape[-1] % 2:
         raise ValueError("MFM needs an even channel count")
     return _MfmPool2d.apply(x)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm with flax's statistics
+# ---------------------------------------------------------------------------
+
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch (torch's momentum 0.1)
+
+
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=bn.eps, dtype=dtype)`` over
+    the last axis of ``x``, with ``bn``'s affine and running statistics.
+
+    In ``bn.training`` it normalises with the batch's statistics, reduced
+    in f32 as flax's ``_compute_stats`` does (mean and mean of squares,
+    the *biased* variance ``max(0, E[x^2] - E[x]^2)``, gradients through
+    both), and updates ``running_mean`` / ``running_var`` with them;
+    ``num_batches_tracked`` stays as it is. In eval it uses the running
+    statistics. Either way ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` runs in f32 and the result is cast to ``dtype`` (f32 when None:
+    flax promotes x with the f32 statistics).
+
+    torch's own ``BatchNorm`` in train mode updates the running variance
+    with the unbiased batch variance, which is not what the JAX models
+    compute.
+    """
+    xf = x.float()
+    if bn.training:
+        axes = tuple(range(x.dim() - 1))
+        mean = xf.mean(axes)
+        var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps)
+    if bn.weight is not None:
+        mul = mul * bn.weight
+    y = (xf - mean) * mul
+    if bn.bias is not None:
+        y = y + bn.bias
+    return y.to(dtype or torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@ The trunk runs channels-last, (B, T, coeff, C), as the JAX model does;
 each convolution views it as NCHW in channels-last memory, which is
 cuDNN's native layout. Two paths:
 
-* f32 (``compute_dtype=None``, or training): conv -> MFM -> BN with
-  running stats -> pools.
+* f32 (``compute_dtype=None``), or training in either dtype: conv ->
+  MFM -> BN (``layers.batch_norm``: running stats in eval, flax's batch
+  statistics and running-stat update in train) -> pools, then dropout
+  (p=0.7) in train.
 * bf16 in ``eval()``: the first block runs as the fused kernel
   (``ops/layer0.py``) at the canonical (404, 80, 1) input; every
   eval-mode BN folds into the preceding conv's output channels (a
@@ -195,8 +197,8 @@ class LCNN(nn.Module):
         return self.fused_trunk
 
     def _bn(self, key: str, h: torch.Tensor) -> torch.Tensor:
-        bn = self.m_transform[key]
-        return bn(h.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1).to(h.dtype)
+        """flax's BatchNorm with ``dtype=compute_dtype``: out in h's dtype."""
+        return layers.batch_norm(self.m_transform[key], h, h.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feat = self._frontend(x) if x.dim() == 2 else x

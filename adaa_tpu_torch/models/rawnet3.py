@@ -31,8 +31,11 @@ environment variable per call):
 
 ``plain_ops = True`` sends both ops to their plain versions on any
 device. The JAX model's ``ADAA_RAWNET_SCAN`` variant is not ported.
-Training is not ported either: the sinc filterbank's weight gradient
-raises.
+In ``train()`` the BNs normalise with the batch's statistics and update
+their running ones as flax does (``layers.batch_norm``), the block
+bodies run the plain path (the b2n kernel is eval-only, as in JAX), and
+the sinc filters take their closed-form gradient (``need_dw``), which
+autograd carries into ``low_hz_`` / ``band_hz_``.
 
 Module names give the reference's ``state_dict`` keys
 (``preprocess.1``, ``conv1.filterbank.*``, ``layer{1,2,3}.*``,
@@ -144,10 +147,9 @@ def _conv_k3(x: torch.Tensor, conv: nn.Conv1d, dilation: int,
 
 
 def _bn(bn: nn.BatchNorm1d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """Eval-mode flax ``BatchNorm`` with ``dtype``: f32 math, cast to ``dtype``."""
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    y = (x.float() - bn.running_mean) * mul + bn.bias
-    return y.to(dtype or torch.float32)
+    """flax ``BatchNorm`` with ``dtype`` (``layers.batch_norm``): f32 math on
+    the running stats in eval, on the batch's in train; cast to ``dtype``."""
+    return layers.batch_norm(bn, x, dtype)
 
 
 class AFMS(nn.Module):
@@ -292,6 +294,7 @@ class RawNet3(nn.Module):
         self.bn5 = nn.BatchNorm1d(3072, eps=BN_EPS)
         self.fc6 = nn.Linear(3072, 1)
         self.bn6 = nn.BatchNorm1d(1, eps=BN_EPS)  # in checkpoints; unused (no output BN)
+        self.bn6.requires_grad_(False)  # and not trained: the JAX model has no bn6
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX model's initialisers, drawn from ``generator``."""

@@ -85,10 +85,9 @@ def _conv(h: torch.Tensor, conv: nn.Conv2d, dtype: Optional[torch.dtype]) -> tor
 
 
 def _bn(bn: nn.BatchNorm2d, h: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """BatchNorm of channels-last h in f32 (running stats in eval, batch
-    stats and a stats update in train); the result in ``dtype`` if given."""
-    y = bn(h.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
-    return y if dtype is None else y.to(dtype)
+    """flax's BatchNorm of channels-last h (``layers.batch_norm``): f32
+    math; the result in ``dtype`` if given, else f32."""
+    return layers.batch_norm(bn, h, dtype)
 
 
 class ResidualBlock2D(nn.Module):

@@ -6,12 +6,15 @@ Run on the card from the repository root:
     python -m adaa_tpu_torch.utils.profiling --model rawnet3 [--config pool|b2n] --out ...
     python -m adaa_tpu_torch.utils.profiling --model specrnet [--fused] --out ...
     python -m adaa_tpu_torch.utils.profiling --attack FAB [--batch 64] --out ...
+    python -m adaa_tpu_torch.utils.profiling --train bf16|f32 [--fused] --out ...
 
 It warms up, then profiles one attacked batch of PGD-10 (or ``--attack``,
 a registry name; ``adaa_tpu_torch.bench.setup``): on the bf16 LCNN+LFCC
 at batch 256 (its fused configuration with ``--fused``), on the bf16
 RawNet3 at batch 64 (with the pool or the b2n kernel with ``--config``),
-or on the bf16 SpecRNet at batch 64 (the fused LFCC with ``--fused``),
+or on the bf16 SpecRNet at batch 64 (the fused LFCC with ``--fused``);
+or, with ``--train``, one adversarial-training step of the LCNN at batch
+256 (``bench.adv_train_step``: FGSM on the live weights, then BCE/Adam),
 and writes a
 JSON summary: without the profiler, the host time to enqueue one batch
 and its wall time; under the profiler, the batch's wall time (inflated
@@ -60,21 +63,39 @@ def profile_attack(batch: Optional[int] = None, seed: int = 0, top: int = 30,
     from adaa_tpu_torch import bench
 
     _, attack, x, y, gen = bench.setup(batch, seed, "cuda", fused, model, config, attack_name)
-    batch = x.shape[0]
+    return {"model": model, "attack": attack_name, "train": None, "batch": x.shape[0],
+            "fused": fused, "config": config, **profile_step(lambda: attack(x, y, gen), top)}
+
+
+def profile_train(batch: Optional[int] = None, seed: int = 0, top: int = 30,
+                  fused: bool = False, dtype: str = "bf16") -> Dict[str, Any]:
+    """One adversarial-training step (``bench.adv_train_step``: FGSM on the
+    live LCNN, then BCE/Adam), in ``dtype`` or the fused configuration."""
+    from adaa_tpu_torch import bench
+
+    config = bench.FUSED_CONFIG if fused else bench.TRAIN_CONFIGS[dtype]
+    path = bench.setup_train(batch or bench.BATCH, seed, "cuda", config=config)
+    return {"model": "lcnn", "attack": "FGSM", "train": dtype, "batch": path.x.shape[0],
+            "fused": fused, "config": config,
+            **profile_step(lambda: bench.adv_train_step(path), top)}
+
+
+def profile_step(step, top: int = 30) -> Dict[str, Any]:
+    """Warm ``step`` up, time one call without the profiler, profile one."""
     for _ in range(2):
-        attack(x, y, gen)
+        step()
     torch.cuda.synchronize()
-    # without the profiler: host time to enqueue one batch vs its wall time
+    # without the profiler: host time to enqueue one step vs its wall time
     # (enqueue close to wall means the host, not the card, sets the pace)
     t0 = time.perf_counter()
-    attack(x, y, gen)
+    step()
     host_us = (time.perf_counter() - t0) * 1e6
     torch.cuda.synchronize()
     plain_wall_us = (time.perf_counter() - t0) * 1e6
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        attack(x, y, gen)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -95,11 +116,6 @@ def profile_attack(batch: Optional[int] = None, seed: int = 0, top: int = 30,
     kern = sorted(({"kernel": k[:160], "ms": v[0] / 1e3, "count": v[1]}
                    for k, v in by_kernel.items()), key=lambda r: -r["ms"])
     return {
-        "model": model,
-        "attack": attack_name,
-        "batch": batch,
-        "fused": fused,
-        "config": config,
         "unprofiled_enqueue_ms": host_us / 1e3,
         "unprofiled_wall_ms": plain_wall_us / 1e3,
         "wall_ms": wall_us / 1e3,
@@ -124,6 +140,9 @@ def main() -> None:
                              "SpecRNet's fused LFCC")
     parser.add_argument("--config", choices=("default", "pool", "b2n"), default="default",
                         help="RawNet3's configuration: no kernel, the pool kernel or the b2n kernel")
+    parser.add_argument("--train", choices=("bf16", "f32"), default=None,
+                        help="profile one adversarial-training step of the LCNN in this dtype "
+                             "(with --fused: its fused configuration) instead of an attack")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -135,13 +154,17 @@ def main() -> None:
                   "b2n": bench.RAWNET3_B2N_CONFIG}[args.config]
     elif args.model == "specrnet":
         config = bench.SPECRNET_FUSED_CONFIG if args.fused else bench.SPECRNET_CONFIG
-    result = {"card": card_line(),
-              **profile_attack(args.batch, fused=args.fused, model=args.model, config=config,
-                               attack_name=args.attack)}
+    if args.train:
+        result = {"card": card_line(), **profile_train(args.batch, fused=args.fused,
+                                                       dtype=args.train)}
+    else:
+        result = {"card": card_line(),
+                  **profile_attack(args.batch, fused=args.fused, model=args.model,
+                                   config=config, attack_name=args.attack)}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
-    brief = {k: result[k] for k in ("card", "model", "attack", "batch", "fused", "config",
+    brief = {k: result[k] for k in ("card", "model", "attack", "train", "batch", "fused", "config",
                                     "unprofiled_enqueue_ms",
                                     "unprofiled_wall_ms", "wall_ms", "device_busy_ms",
                                     "device_idle_share", "kernel_launches")}

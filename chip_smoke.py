@@ -87,13 +87,39 @@ exit code is not 0:
     recomputation with a generator of the same seed) and once through the
     adversarial CLI's config-dict entry; every report with its six keys
     and finite accuracy/precision/recall/F1, and the layer-0 kernel
-    launched in the LCNN-surrogate runs.
+    launched in the LCNN-surrogate runs;
+17. adversarial training on the LCNN at B=256 x 64,600
+    (``bench.setup_train`` / ``adv_train_step``: ONLY_ADV, the registry's
+    FGSM self-attack on the live weights, then BCE/Adam) in bf16, f32 and
+    the fused configuration: the launches of one step (bf16: layer 0 one
+    forward and one dx; f32: no kernel; fused: layer 0 1 + 1, LFCC >= 1,
+    trunk 2 + 2), three more steps with a finite loss that move every
+    weight and every BN running statistic, then the stale-weight guard:
+    layer 0's packed weights equal the live ones and, on a fresh batch,
+    the FGSM batch through the kernels equals the plain ops' on >=
+    TRAIN_FGSM_EQUAL (0.99 default, 0.9 fused) of its coordinates, both in
+    the eps ball (beside it
+    the share a copy of the weights of before the steps gives, which a
+    stale cache would show); then ``measure_torch_train``
+    (ms per step, examples/s, peak memory) in bf16 and f32;
+18. clean f32 train steps of RawNet3 at B=16 (C=1024, T=6435) and
+    SpecRNet at B=64: finite losses, RawNet3's sinc band parameters with
+    a finite non-zero gradient and its lr equal to the warm-restart
+    schedule (T_0 = 4) over 5 steps; ms per step and peak memory;
+19. the two training CLIs end to end on the card (``python -m``, in a
+    temporary working directory): ``train_models`` on synthetic:64 with
+    ``-b 16 -e 1 -ta 32``, then ``train_models_on_adversarial_attacks
+    --finetune`` from its checkpoint with ADAPTIVE (FGSM, PGDL2) and
+    ONLY_ADV (FGSM): their ``train/``, ``test/``, ``adv_test/{atk}__*``
+    and ``multi_f1_score`` lines, and each saved ``.pth`` loaded back
+    through ``models.load_model``.
 
 The last lines are the kernels' JSON summary (all nine kernel entries),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import importlib.util
 import json
 import os
@@ -844,6 +870,206 @@ def phase16_eval(attacks, bench, models, counters, set_seed) -> None:
               f"{what} layer-0 launches {got}")
 
 
+# share of a fresh batch's FGSM coordinates equal, kernels vs plain ops, after
+# the training steps, per configuration: the bf16 trunk's MFM and pool maxes
+# have near-ties that a one-ulp difference in a kernel's output flips, and
+# each flip reroutes a cotangent; the fused configuration adds the LFCC and
+# trunk kernels' own (measured on an H100: 0.995 default, 0.959 fused). The
+# weights of before the steps give ~0.52 in both, which is what a stale
+# layer-0 weight cache would show
+TRAIN_FGSM_EQUAL = {"bf16": 0.99, "fused": 0.9}
+
+
+def fgsm_vs_plain(path, attacks, stale_model, band: float) -> dict:
+    """The self-attack's FGSM on a fresh batch, on the live weights through
+    the kernels and through ``plain_ops``: both in the eps ball, most
+    coordinates equal. (On the batch it just trained on, the model's
+    gradient shrinks step by step and its signs get fragile.) Beside it,
+    the share that ``stale_model``, the weights of before the steps, would
+    give through the kernels: what a stale weight cache would show."""
+    from adaa_tpu_torch.training.adv_trainer import make_adv_fn
+
+    model = path.state.model
+    x = randn(np.random.default_rng(170), tuple(path.x.shape))
+    adv_kernel = path.adv_fn(x, path.y)
+    model.plain_ops = True
+    try:
+        adv_plain = path.adv_fn(x, path.y)
+    finally:
+        model.plain_ops = False
+    adv_stale = make_adv_fn("FGSM", stale_model)(x, path.y)
+    x01, mn, mx = attacks.to_minmax(x)
+    linf = max(float(((a - mn) / (mx - mn) - x01).abs().max()) for a in (adv_kernel, adv_plain))
+    equal = float((adv_kernel == adv_plain).float().mean())
+    check(linf <= EPS + 1e-6, f"self-attack outside the eps ball: {linf}")
+    check(equal >= band, f"FGSM kernels vs plain: {equal} of coordinates equal")
+    return {"fgsm_equal_share": equal, "linf01": linf,
+            "stale_weights_equal_share": float((adv_stale == adv_plain).float().mean())}
+
+
+def train_steps_checked(bench, path, n: int) -> dict:
+    """``n`` adversarial-training steps: a finite loss, every parameter and
+    every BN running statistic moved."""
+    model = path.state.model
+    params = {k: p.detach().clone() for k, p in model.named_parameters() if p.requires_grad}
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running_" in k}
+    losses = [float(bench.adv_train_step(path)) for _ in range(n)]
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    now = dict(model.named_parameters())
+    still = [k for k, v in params.items() if torch.equal(now[k].detach(), v)]
+    check(not still, f"parameters that did not move: {still}")
+    sd = model.state_dict()
+    still = [k for k, v in stats.items() if torch.equal(sd[k], v)]
+    check(not still, f"BN running statistics that did not move: {still}")
+    return {"losses": losses}
+
+
+def phase17_train(attacks, bench, layer0, counters, card) -> dict:
+    """One ONLY_ADV step (FGSM self-attack on the live weights + BCE/Adam) on
+    the LCNN at B=256, bf16 and f32: launches per step, 3 steps that move
+    every weight and BN statistic, the stale-weight guard, then
+    ``measure_torch_train``; and a short fused-configuration step."""
+    out = {"phase": 17, "batch": B, "card": card}
+    for name, config in (("bf16", bench.TRAIN_CONFIGS["bf16"]),
+                         ("f32", bench.TRAIN_CONFIGS["f32"]), ("fused", bench.FUSED_CONFIG)):
+        path = bench.setup_train(B, seed=17, device="cuda", config=config)
+        bench.adv_train_step(path)  # warm-up
+        torch.cuda.synchronize()
+        zero(counters)
+        bench.adv_train_step(path)
+        torch.cuda.synchronize()
+        launches = snapshot(counters)
+        stale = copy.deepcopy(path.state.model)
+        res = {"launches_per_step": launches, **train_steps_checked(bench, path, 3)}
+        want = {"bf16": launches["layer0"] == {"fwd": 1, "bwd": 1}
+                and not launched(launches, ("lfcc", "trunk")),
+                "f32": not launched(launches, ALL_KERNELS[:3]),
+                "fused": (launches["layer0"] == {"fwd": 1, "bwd": 1}
+                          and launches["lfcc"]["fwd"] >= 1
+                          and launches["trunk"] == {"fwd": 2, "bwd": 2})}[name]
+        check(want, f"{name} adversarial training step launches {launches}")
+        if name != "f32":
+            # the stale-weight guard: after the steps the kernel reads the live
+            # weights (layer 0's packed images are keyed on the version)
+            w = path.state.model.m_transform["0"].weight.detach()
+            check(torch.equal(layer0.packed_weights(w)[2], w.float()),
+                  "layer 0's packed weights are stale after the optimizer steps")
+            res.update(fgsm_vs_plain(path, attacks, stale, TRAIN_FGSM_EQUAL[name]))
+        out[name] = res
+        del path, stale
+        torch.cuda.empty_cache()
+    for name in ("bf16", "f32"):
+        out[name].update(bench.measure_torch_train(B, iters=5, warmup=2, dtype=name))
+        check(np.isfinite(out[name]["loss"]), f"{name} training loss {out[name]['loss']}")
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase18_train_models(bench, card) -> dict:
+    """Train steps (clean, f32) of RawNet3 at B=16 and SpecRNet at B=64, full
+    width: ms per step, peak memory; RawNet3's sinc band parameters get a
+    finite, non-zero gradient and its lr follows the warm-restart schedule."""
+    from adaa_tpu_torch.training import train_state
+    from adaa_tpu_torch.training.gd_trainer import train_step
+
+    out = {"phase": 18, "card": card}
+    for model, batch in (("rawnet3", 16), ("specrnet", 64)):
+        config = {} if model == "rawnet3" else {**bench.SPECRNET_CONFIG, "compute_dtype": None}
+        torch.cuda.reset_peak_memory_stats()
+        path = bench.setup_train(batch, seed=18, device="cuda", model=model, config=config,
+                                 optimizer_kwargs={"lr": 1e-3, "weight_decay": 5e-5},
+                                 use_scheduler=model == "rawnet3", batches_per_epoch=2,
+                                 scheduler_t0_epochs=2)
+        state = path.state
+        lrs, losses = [], []
+        for _ in range(5):
+            losses.append(float(train_step(state, path.x, path.y, path.acc)))
+            lrs.append(state.optimizer.param_groups[0]["lr"])
+        res = {"batch": batch, "losses": losses}
+        check(all(np.isfinite(losses)), f"{model}: non-finite loss {losses}")
+        if model == "rawnet3":
+            fb = state.model.conv1.filterbank
+            grads = {k: getattr(fb, k).grad for k in ("low_hz_", "band_hz_")}
+            for k, g in grads.items():
+                check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                      f"sinc {k} gradient {g}")
+            want = [train_state.cosine_annealing_warm_restarts(1e-3, 4)(c) for c in range(5)]
+            res.update({"lrs": lrs, "schedule": want,
+                        "sinc_grad_abs_max": {k: float(g.abs().max()) for k, g in grads.items()}})
+            check(lrs == want, f"lr {lrs} is not the warm-restart schedule {want}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            train_step(state, path.x, path.y, path.acc)
+        end.record()
+        end.synchronize()
+        res.update({"ms_per_step": start.elapsed_time(end) / 3,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        out[model] = res
+        del path, state
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase19_clis(models, set_seed) -> dict:
+    """The two training CLIs end to end on the card, in a temporary working
+    directory: train_models on synthetic:64, then two adversarial finetunes
+    (ADAPTIVE with FGSM + PGDL2, ONLY_ADV with FGSM) from its checkpoint."""
+    import sys
+    import tempfile
+
+    import yaml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    common = ["--asv_path", "synthetic:64", "-b", "16", "-e", "1", "-ta", "32"]
+    out = {"phase": 19}
+
+    def cli(name, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"adaa_tpu_torch.scripts.{name}", *args,
+                               *common], cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"{name} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log, wall = cli("train_models", "--config", os.path.join(repo, "configs/training/lcnn.yaml"))
+        for needle in ("train/loss", "test/accuracy", "test/eer"):
+            check(needle in log, f"train_models: no {needle} line")
+        (chained,) = [f for f in os.listdir(os.path.join(tmp, "configs"))]
+        config = yaml.safe_load(open(os.path.join(tmp, "configs", chained)))
+        out["train_models"] = {"wall_s": wall, "config": chained}
+        for strategy, attacks_ in (("ADAPTIVE", ["FGSM", "PGDL2"]), ("ONLY_ADV", ["FGSM"])):
+            config["data"]["adversarial_attacks"] = attacks_
+            cfg_path = os.path.join(tmp, f"adv_{strategy}.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.dump(config, f)
+            before = set(os.listdir(os.path.join(tmp, "configs")))
+            log, wall = cli("train_models_on_adversarial_attacks", "--config", cfg_path,
+                            "--finetune", "--adv_training_strategy", strategy)
+            needles = ["train/loss", "test/accuracy", "multi_f1_score",
+                       *[f"adv_test/{a}__{m}" for a in attacks_ for m in ("loss", "accuracy")]]
+            missing = [n for n in needles if n not in log]
+            check(not missing, f"{strategy}: no {missing} lines")
+            (written,) = set(os.listdir(os.path.join(tmp, "configs"))) - before
+            test_cfg = yaml.safe_load(open(os.path.join(tmp, "configs", written)))
+            ckpt = os.path.join(tmp, test_cfg["checkpoint"]["paths"][0])
+            test_cfg["checkpoint"] = {"path": ckpt}
+            model = models.load_model(test_cfg, set_seed(19, "cuda"), "cuda")
+            saved = torch.load(ckpt, map_location="cuda", weights_only=True)
+            check(all(torch.equal(model.state_dict()[k], v) for k, v in saved.items()),
+                  f"{strategy}: the saved checkpoint does not load through models.load_model")
+            out[strategy] = {"wall_s": wall, "attacks": attacks_,
+                             "multi_f1_line": [ln[ln.index("multi_f1_score"):]
+                                               for ln in log.splitlines()
+                                               if "multi_f1_score" in ln]}
+    emit(out)
+    return out
+
+
 def phase9_highest_gradient(attacks, models, set_seed) -> None:
     """The f32-highest input gradient with torch's default TF32 flags vs the
     same gradient with TF32 off globally; cuDNN deterministic in both, so
@@ -944,6 +1170,10 @@ def main() -> None:
     phase14_specrnet(attacks, bench, all_counters, card)
     phase15_fab(attacks, bench, all_counters, card)
     phase16_eval(attacks, bench, models, all_counters, set_seed)
+    torch.cuda.empty_cache()
+    phase17_train(attacks, bench, layer0, all_counters, card)
+    phase18_train_models(bench, card)
+    phase19_clis(models, set_seed)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

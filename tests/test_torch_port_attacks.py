@@ -215,13 +215,17 @@ def test_package_imports_no_jax():
         "import adaa_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(adaa_tpu_torch.__path__, 'adaa_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = [m for m in ('jax', 'flax', 'adaa_tpu', 'triton', 'sklearn', 'pandas', 'yaml')\n"
-        "       if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'adaa_tpu', 'triton', 'sklearn', 'pandas',\n"
+        "                   'yaml') if m in sys.modules]\n"
         "need = {'adaa_tpu_torch.models.rawnet3', 'adaa_tpu_torch.ops.sinc_conv',\n"
         "        'adaa_tpu_torch.ops.pool', 'adaa_tpu_torch.ops.b2n',\n"
         "        'adaa_tpu_torch.models.specrnet', 'adaa_tpu_torch.attacks.fab',\n"
         "        'adaa_tpu_torch.metrics', 'adaa_tpu_torch.eval.adv_evaluation',\n"
-        "        'adaa_tpu_torch.scripts.evaluate_models_on_adversarial_attacks'}\n"
+        "        'adaa_tpu_torch.scripts.evaluate_models_on_adversarial_attacks',\n"
+        "        'adaa_tpu_torch.training.train_state', 'adaa_tpu_torch.training.gd_trainer',\n"
+        "        'adaa_tpu_torch.training.adv_trainer', 'adaa_tpu_torch.utils.checkpoints',\n"
+        "        'adaa_tpu_torch.scripts.train_models',\n"
+        "        'adaa_tpu_torch.scripts.train_models_on_adversarial_attacks'}\n"
         "assert len(mods) >= 30 and need <= set(mods) and not bad, (mods, bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

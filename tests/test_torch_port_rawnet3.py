@@ -42,41 +42,14 @@ from adaa_tpu import models as jmodels
 from adaa_tpu.models import torch_import
 from adaa_tpu_torch import attacks as tattacks
 from adaa_tpu_torch import models as tmodels
-from adaa_tpu_torch.models.rawnet3 import _sinc_init_hz
 from adaa_tpu_torch.models.weights import rawnet3_state_dict_from_flax
 from tests.oracles.torch_rawnet3 import TorchRawNet3
+from tests.torch_port_common import rawnet3_variables
 
 torch.set_num_threads(2)
 
 L = 5041
 LABELS = np.array([0, 1])
-
-
-def rawnet3_variables(seed: int = 0):
-    """The JAX RawNet3's {"params", "batch_stats"} tree as numpy arrays,
-    random within torch's default bounds; BN statistics randomised."""
-    module = jmodels.get_model("rawnet3", {})
-    shapes = jax.eval_shape(lambda: module.init({"params": jax.random.PRNGKey(0)},
-                                                jnp.zeros((1, L)), train=False))
-    rng = np.random.default_rng(seed)
-    low, band = _sinc_init_hz(128, 8000.0, 50.0, 50.0)
-
-    def leaf(path, s):
-        name = path[-1].key
-        shape = s.shape
-        if name == "kernel":
-            bound = 1 / np.sqrt(np.prod(shape[:-1]))
-            return rng.uniform(-bound, bound, shape)
-        if name in ("scale", "alpha", "instancenorm_weight"):
-            return rng.uniform(0.5, 1.5, shape)
-        if name in ("bias", "instancenorm_bias", "mean"):
-            return rng.standard_normal(shape) * 0.1
-        if name == "var":
-            return rng.uniform(0.5, 2.0, shape)
-        return {"low_hz_": low, "band_hz_": band}[name].reshape(shape)
-
-    tree = jax.tree_util.tree_map_with_path(leaf, dict(shapes))
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
 
 
 @pytest.fixture(scope="module")

@@ -1,12 +1,14 @@
-"""Shared pieces of the adaa_tpu_torch tests: sets of LCNN and SpecRNet
-weights, made with numpy from a seed, for the JAX models and their torch
-ports."""
+"""Shared pieces of the adaa_tpu_torch tests: sets of LCNN, SpecRNet and
+RawNet3 weights, made with numpy from a seed, for the JAX models and their
+torch ports."""
 import numpy as np
 import torch
 
 from adaa_tpu_torch import models as tmodels
 from adaa_tpu_torch.models.lcnn import BNS, CONVS
+from adaa_tpu_torch.models.rawnet3 import _sinc_init_hz
 from adaa_tpu_torch.models.weights import (lcnn_state_dict_from_flax,
+                                           rawnet3_state_dict_from_flax,
                                            specrnet_state_dict_from_flax)
 
 CFG_F32 = {"input_channels": 1, "frontend_algorithm": ["lfcc"]}
@@ -107,6 +109,46 @@ def port_specrnet(cfg, variables) -> torch.nn.Module:
     """The port's SpecRNet in eval() carrying the JAX variables."""
     model = tmodels.get_model("specrnet", cfg)
     model.load_state_dict(specrnet_state_dict_from_flax(variables))
+    return model.eval()
+
+
+def rawnet3_variables(seed: int = 0):
+    """The JAX RawNet3's {"params", "batch_stats"} tree as numpy arrays,
+    random within torch's default bounds; BN statistics randomised. (The
+    shapes do not depend on the wave length.)"""
+    import jax
+    import jax.numpy as jnp
+
+    from adaa_tpu import models as jmodels
+
+    module = jmodels.get_model("rawnet3", {})
+    shapes = jax.eval_shape(lambda: module.init({"params": jax.random.PRNGKey(0)},
+                                                jnp.zeros((1, 5041)), train=False))
+    rng = np.random.default_rng(seed)
+    low, band = _sinc_init_hz(128, 8000.0, 50.0, 50.0)
+
+    def leaf(path, s):
+        name = path[-1].key
+        shape = s.shape
+        if name == "kernel":
+            bound = 1 / np.sqrt(np.prod(shape[:-1]))
+            return rng.uniform(-bound, bound, shape)
+        if name in ("scale", "alpha", "instancenorm_weight"):
+            return rng.uniform(0.5, 1.5, shape)
+        if name in ("bias", "instancenorm_bias", "mean"):
+            return rng.standard_normal(shape) * 0.1
+        if name == "var":
+            return rng.uniform(0.5, 2.0, shape)
+        return {"low_hz_": low, "band_hz_": band}[name].reshape(shape)
+
+    tree = jax.tree_util.tree_map_with_path(leaf, dict(shapes))
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def port_rawnet3(cfg, variables) -> torch.nn.Module:
+    """The port's RawNet3 in eval() carrying the JAX variables."""
+    model = tmodels.get_model("rawnet3", cfg)
+    model.load_state_dict(rawnet3_state_dict_from_flax(variables), strict=True)
     return model.eval()
 
 
