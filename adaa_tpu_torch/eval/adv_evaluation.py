@@ -11,8 +11,15 @@ transfer when it is another model on the same device.
 
 The attack's randomness draws from one ``torch.Generator`` (by default a
 fresh one seeded 0 on the victim's device), batch after batch.
-Raw mode (``raw_sample_from_dataset``) re-preprocesses the attacked audio
-with the data layer's silence trim, which is not ported yet.
+
+Raw mode (``raw_sample_from_dataset``, the CLI's ``--raw_from_dataset``):
+the dataset gives untrimmed items, and the attacked batch goes back
+through the canonical preprocessing WITH DEFAULTS (silence trim, then
+repeat-pad) before the victim sees it, as the reference does
+(evaluate_models_on_adversarial_attacks.py:229-234 -> base_dataset.py:
+122-148). The trim is host code (the host library's sox-silence port), so
+raw mode pays one device -> host -> device round trip per batch, as the
+reference and the JAX package do.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from torch import nn
 
 from adaa_tpu_torch import attacks as attacks_lib
 from adaa_tpu_torch import metrics
+from adaa_tpu_torch.data import base as dsp
 from adaa_tpu_torch.data.loader import DataLoader
 from adaa_tpu_torch.eval.evaluation import eval_mode, model_device
 
@@ -41,10 +49,6 @@ def generate_attacks(
     on_attack_end_callback: Optional[Callable] = None,
     raw_sample_from_dataset: bool = False,
 ) -> Dict[str, float]:
-    if raw_sample_from_dataset:
-        raise NotImplementedError(
-            "raw mode (--raw_from_dataset) needs the data layer's silence trim, "
-            "which adaa_tpu_torch does not port yet (ROADMAP.md, queue 1)")
     device = model_device(victim_model)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -65,6 +69,12 @@ def generate_attacks(
         with eval_mode(victim_model), torch.no_grad():
             return torch.sigmoid(victim_model(x).squeeze(1))
 
+    def reprocessed(batch_x: np.ndarray, batch_sr: np.ndarray) -> torch.Tensor:
+        """The canonical preprocessing with its defaults (trim, re-pad) on
+        the host, back on the victim's device (reference :229-234)."""
+        waves, _ = dsp.wavefake_preprocessing_on_batch(batch_x, batch_sr)
+        return torch.from_numpy(waves).to(device)
+
     loader = DataLoader(dataset, batch_size, shuffle=True, drop_last=True, num_workers=3)
     y_pred, y = [], []
     for batch in loader:
@@ -72,16 +82,24 @@ def generate_attacks(
         batch_y = torch.from_numpy(batch[2]).to(device).long()
         batch_meta = batch[3] if len(batch) > 3 else None
         batch_x_attacked = attack_batch(batch_x, batch_y, generator) if has_attack else batch_x
-        preds = victim_predict(batch_x_attacked)
+        # the callback receives the waveforms from before any
+        # re-preprocessing (the reference keeps unprocessed clones, :225-226)
+        need_callback = on_attack_end_callback is not None
+        attacked_noproc = (batch_x_attacked.cpu().numpy()
+                           if need_callback or raw_sample_from_dataset else None)
+        victim_x = (reprocessed(attacked_noproc, batch[1]) if raw_sample_from_dataset
+                    else batch_x_attacked)
+        preds = victim_predict(victim_x)
         y.append(batch[2])
-        if on_attack_end_callback is None:
+        if not need_callback:
             y_pred.append(preds)  # stays on the device: one pull at the end
             continue
         preds = preds.cpu().numpy()
-        preds_noattack = victim_predict(batch_x).cpu().numpy()
+        clean = reprocessed(batch[0], batch[1]) if raw_sample_from_dataset else batch_x
+        preds_noattack = victim_predict(clean).cpu().numpy()
         on_attack_end_callback(
-            batch_x=batch_x.cpu().numpy(),
-            batch_x_attacked=batch_x_attacked.cpu().numpy(),
+            batch_x=batch[0],
+            batch_x_attacked=attacked_noproc,
             batch_y=np.asarray(batch[2]),
             batch_preds_label=(preds + 0.5).astype(np.int32),
             batch_preds=preds,

@@ -64,9 +64,10 @@ def load_model(model_config: Dict[str, Any], generator: torch.Generator,
     checkpoint if it names one (port of ``adaa_tpu.models.load_model``).
 
     Reference ``.pth`` / ``.pt`` state_dicts load directly (``module.``
-    prefixes stripped); the JAX package's ``.msgpack`` checkpoints do not.
+    prefixes stripped); the JAX package's ``.msgpack`` checkpoints load
+    through the weight bridge (``utils.checkpoints.load_checkpoint``).
     """
-    from adaa_tpu_torch.models.weights import load_state_dict
+    from adaa_tpu_torch.utils.checkpoints import load_checkpoint
 
     model_name = model_config["model"]["name"]
     model_parameters = model_config["model"].get("parameters", {}) or {}
@@ -74,10 +75,6 @@ def load_model(model_config: Dict[str, Any], generator: torch.Generator,
         model_config.get("checkpoint", {}) or {})
     model = init_model(get_model(model_name, model_parameters), generator, device)
     if model_path:
-        if not model_path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"checkpoint '{model_path}': only .pth/.pt state_dicts load in adaa_tpu_torch; "
-                ".msgpack interop is a later slice (ROADMAP.md, queue 1)")
-        model.load_state_dict(load_state_dict(model_path))
+        model.load_state_dict(load_checkpoint(model_path, model_name))
         LOGGER.info("Loaded weights on '%s' model, path: %s", model_name, model_path)
     return model

@@ -1,7 +1,8 @@
 """Weights in and out of the port's models.
 
 ``lcnn_state_dict_from_flax``, ``rawnet3_state_dict_from_flax`` and
-``specrnet_state_dict_from_flax`` are the inverses of
+``specrnet_state_dict_from_flax`` (``state_dict_from_flax`` by model name,
+which reads the JAX package's ``.msgpack`` checkpoints) are the inverses of
 ``adaa_tpu/models/torch_import.py``'s ``lcnn_from_state_dict``,
 ``rawnet3_from_state_dict`` and ``specrnet_from_state_dict``: they turn the
 JAX model's ``{"params", "batch_stats"}`` tree (as numpy arrays) into a
@@ -132,6 +133,17 @@ def specrnet_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.
     _linear(sd, "fc1_gru", params["fc1_gru"])
     _linear(sd, "fc2_gru", params["fc2_gru"])
     return sd
+
+
+FROM_FLAX = {"lcnn": lcnn_state_dict_from_flax, "rawnet3": rawnet3_state_dict_from_flax,
+             "specrnet": specrnet_state_dict_from_flax}
+
+
+def state_dict_from_flax(model_name: str, variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the JAX model ``model_name``'s variable tree."""
+    if model_name not in FROM_FLAX:
+        raise ValueError(f"no flax weight bridge for model '{model_name}'")
+    return FROM_FLAX[model_name](variables)
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:

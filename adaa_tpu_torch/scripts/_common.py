@@ -2,9 +2,10 @@
 
 The reference's dataset-path flags, the logging set-up, and the device
 choice: ``--cpu`` selects the CPU, otherwise the CLIs run on ``cuda`` and
-refuse to start without a card. ``--asv_path synthetic[:N[:L]]`` selects
-the in-memory synthetic dataset (N items of L samples); the real corpora
-are not ported yet (ROADMAP.md, queue 1).
+refuse to start without a card. The three paths name corpus trees laid
+out as ASVspoof2021-DF, WaveFake and FakeAVCeleb (``DetectionDataset``);
+``""`` or ``none`` leaves a corpus out. ``--asv_path synthetic[:N[:L]]``
+selects the in-memory synthetic dataset instead (N items of L samples).
 """
 from __future__ import annotations
 
@@ -46,8 +47,13 @@ def add_dataset_path_args(parser) -> None:
 
 
 def build_dataset(datasets_paths: List[Union[str, None]], subset: str,
-                  reduced_number: Optional[int] = None, return_label: bool = True,
-                  return_meta: bool = False, return_raw: bool = False):
+                  reduced_number: Optional[int] = None, oversample: bool = True,
+                  return_label: bool = True, return_meta: bool = False,
+                  return_raw: bool = False):
+    # argparse can't pass None; "" or "none" means "skip this corpus" (the
+    # reference's None, evaluate_models.py:162)
+    datasets_paths = [None if isinstance(p, str) and p.strip().lower() in ("", "none") else p
+                      for p in datasets_paths]
     asv = datasets_paths[0]
     if isinstance(asv, str) and asv.startswith("synthetic"):
         from adaa_tpu_torch.data.synthetic import SyntheticDataset
@@ -59,6 +65,10 @@ def build_dataset(datasets_paths: List[Union[str, None]], subset: str,
         kwargs = {"wave_length": int(parts[2])} if len(parts) > 2 else {}
         return SyntheticDataset(n=n, subset=subset, return_label=return_label,
                                 return_meta=return_meta, return_raw=return_raw, **kwargs)
-    raise NotImplementedError(
-        f"dataset path {asv!r}: the real corpora (ASVspoof, WaveFake, FakeAVCeleb) are not "
-        "ported to adaa_tpu_torch yet (ROADMAP.md, queue 1); use --asv_path synthetic[:N[:L]]")
+    from adaa_tpu_torch.data.detection import DetectionDataset
+
+    return DetectionDataset(asvspoof_path=datasets_paths[0], wavefake_path=datasets_paths[1],
+                            fakeavceleb_path=datasets_paths[2], subset=subset,
+                            reduced_number=reduced_number, oversample=oversample,
+                            return_label=return_label, return_meta=return_meta,
+                            return_raw=return_raw)

@@ -52,8 +52,8 @@ def run(args: argparse.Namespace, config: Dict[str, Any]) -> Tuple[Path, Path]:
     timestamp = time.time()
 
     paths = [args.asv_path, args.wavefake_path, args.celeb_path]
-    data_train = build_dataset(paths, "train", args.train_amount)
-    data_test = build_dataset(paths, "test", args.test_amount)
+    data_train = build_dataset(paths, "train", args.train_amount, oversample=True)
+    data_test = build_dataset(paths, "test", args.test_amount, oversample=True)
     model = models.init_model(
         models.get_model(model_name, model_config.get("parameters", {}) or {}), generator, device)
     use_scheduler = "rawnet3" in model_name.lower()

@@ -42,8 +42,8 @@ def run(args: argparse.Namespace, config: Dict[str, Any],
     timestamp = time.time()
 
     paths = [args.asv_path, args.wavefake_path, args.celeb_path]
-    data_train = build_dataset(paths, "train", args.train_amount)
-    data_test = build_dataset(paths, "test", args.test_amount)
+    data_train = build_dataset(paths, "train", args.train_amount, oversample=True)
+    data_test = build_dataset(paths, "test", args.test_amount, oversample=True)
 
     if args.finetune:
         if not (config.get("checkpoint") or {}).get("path"):

@@ -6,7 +6,10 @@ The reference persists ``torch.save(model.state_dict())`` under
 ``state_dict`` with the reference's key names, in the JAX package's
 directory layout with ``.pth`` in place of ``.msgpack``. The port's
 ``models.load_model`` reads it, and so does the JAX package's
-``adaa_tpu.models.load_model`` (through its ``torch_import``).
+``adaa_tpu.models.load_model`` (through its ``torch_import``). The port
+also reads the JAX package's ``.msgpack`` checkpoints (flax variable
+trees, decoded by ``utils/msgpack.py`` and mapped through the weight
+bridge); it does not write them.
 """
 from __future__ import annotations
 
@@ -32,9 +35,21 @@ def save_checkpoint(model: nn.Module, model_dir: Union[Path, str], name: str,
     return path
 
 
-def load_checkpoint(path: Union[Path, str]) -> Dict[str, torch.Tensor]:
-    """A saved (or reference) ``.pth`` state_dict on the CPU, DataParallel
-    ``module.`` prefixes stripped; ``model.load_state_dict`` takes it."""
-    from adaa_tpu_torch.models.weights import load_state_dict
+def load_checkpoint(path: Union[Path, str],
+                    model_name: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """A checkpoint as a ``state_dict`` on the CPU that
+    ``model.load_state_dict`` takes: a saved (or reference) ``.pth`` /
+    ``.pt`` with DataParallel ``module.`` prefixes stripped, or a JAX
+    ``.msgpack`` of the model ``model_name`` (lcnn, rawnet3, specrnet)."""
+    from adaa_tpu_torch.models import weights
 
-    return load_state_dict(str(path))
+    path = str(path)
+    if path.endswith((".pth", ".pt")):
+        return weights.load_state_dict(path)
+    if path.endswith(".msgpack"):
+        if model_name is None:
+            raise ValueError(f"checkpoint '{path}': a .msgpack needs the model's name")
+        from adaa_tpu_torch.utils import msgpack
+
+        return weights.state_dict_from_flax(model_name, msgpack.load(path))
+    raise ValueError(f"checkpoint '{path}': expected .pth, .pt or .msgpack")

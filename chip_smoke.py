@@ -6,9 +6,12 @@ It needs one CUDA card and ``nvcc``; it never imports jax or adaa_tpu.
 Each phase prints one JSON line, and any failed check raises, so the
 exit code is not 0:
 
-0. the card: ``nvidia-smi`` name and power limit;
+0. the card: ``nvidia-smi`` name and power limit; the host toolchain and
+   codecs (``g++``'s version, whether the system libmpg123 and libmp3lame
+   load);
 1. build the five kernels from ``adaa_tpu_torch/csrc`` (one nvcc per
-   source, all at once; timed), with each kernel's ptxas registers and
+   source) and the host DSP library ``csrc/dsp.cpp`` (g++), all at once
+   (timed, each build's seconds), with each kernel's ptxas registers and
    spills and, where ``cuobjdump`` exists, the count of wgmma (HGMMA),
    TMA load (UTMALDG) and setmaxnreg instructions in the layer-0, trunk
    and b2n libraries;
@@ -112,7 +115,33 @@ exit code is not 0:
     --finetune`` from its checkpoint with ADAPTIVE (FGSM, PGDL2) and
     ONLY_ADV (FGSM): their ``train/``, ``test/``, ``adv_test/{atk}__*``
     and ``multi_f1_score`` lines, and each saved ``.pth`` loaded back
-    through ``models.load_model``.
+    through ``models.load_model``;
+20. the real-corpus path: a mini-corpus written to a temporary directory in
+    the published layouts (``tests/torch_port_corpus.py``: ASVspoof2021-DF
+    16 kHz FLAC, WaveFake WAV at 22,050 / 24,000 / 48,000 Hz, FakeAVCeleb
+    MP3 at 44.1 kHz through libmp3lame, which the line names as left out
+    when the codecs are absent; 1-6 s utterances with 0.1-0.6 s silences),
+    its generation seconds; every FLAC and WAV decoded to the exact PCM
+    written, every MP3 to the written length within the codec's padding at
+    the written rate, and the decode ms per file of each format; one epoch
+    of ``train_models`` on it (-b 64, configs/training/lcnn.yaml: the
+    DetectionDataset with oversampling), then, with that checkpoint in the
+    bf16 default and fused LCNN configurations, raw-mode PGD-10
+    (``--raw_from_dataset``) on the val subset at B=64: a callback run
+    whose first batch's victim predictions equal, bit for bit under cuDNN's
+    deterministic algorithms, the victim's on
+    ``wavefake_preprocessing_on_batch`` of the callback's attacked batch;
+    the trim changed at least one attacked wave; the CLI's raw and plain
+    runs with their ``adv_eval/*`` lines, the reports' keys finite, layer
+    0's launches 10 backward and >= 10 forward per batch (fused: LFCC >=
+    10, trunk >= 20 forward and 20 backward per batch) in the raw run; the
+    examples/s of ``generate_attacks`` alone, raw and plain, four runs each
+    in ABBA order over the train subset (about ten batches) with models
+    and manifests built beforehand, their spread, raw mode's extra wall
+    within each adjacent (plain, raw) pair, and the device's idle
+    share in one profiled run of each mode against that run's own wall;
+    and the host ms per batch of the re-preprocessing round trip (device ->
+    host, trim + pad, -> device) with its share of a raw-mode batch.
 
 The last lines are the kernels' JSON summary (all nine kernel entries),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -1070,6 +1099,266 @@ def phase19_clis(models, set_seed) -> dict:
     return out
 
 
+# phase 20's mini-corpus: enough files that the val subset holds >= 128
+# rows after oversampling (two batches of 64); without the mp3 codecs the
+# FakeAVCeleb part is left out and WaveFake grows to make up its rows
+CORPUS = {"wavefake_spoof": 330, "wavefake_real": 60, "asvspoof_spoof": 32,
+          "asvspoof_bonafide": 8, "fakeavceleb_per_attack": 25, "fakeavceleb_real": 30}
+CORPUS_NO_MP3_WAVEFAKE_SPOOF = 450
+MP3_FRAME = 1152
+
+
+def write_corpus(root: str) -> dict:
+    """The mini-corpus of phase 20 in the published layouts (ASVspoof2021-DF
+    FLAC, WaveFake WAV at 22,050 / 24,000 / 48,000 Hz, FakeAVCeleb MP3 at
+    44.1 kHz), 1-6 s utterances with 0.1-0.6 s silences, from a seed."""
+    from pathlib import Path
+
+    from adaa_tpu_torch.data import mp3
+
+    # by its path: tests/ is not a package, and an installed package named
+    # "tests" would shadow it
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_corpus", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                          "torch_port_corpus.py"))
+    corpus = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(corpus)
+    root, rng, written = Path(root), np.random.default_rng(20), []
+    have_mp3 = mp3.available() and mp3.encoder_available()
+    n_wavefake = CORPUS["wavefake_spoof"] if have_mp3 else CORPUS_NO_MP3_WAVEFAKE_SPOOF
+    t0 = time.perf_counter()
+    paths = {"asvspoof": corpus.asvspoof2021_df(root / "ASVspoof2021_DF", CORPUS["asvspoof_spoof"],
+                                                CORPUS["asvspoof_bonafide"], rng, written),
+             "wavefake": corpus.wavefake(root / "WaveFake", n_wavefake, CORPUS["wavefake_real"],
+                                         rng, written),
+             "fakeavceleb": None}
+    if have_mp3:
+        paths["fakeavceleb"] = corpus.fakeavceleb(
+            root / "FakeAVCeleb_v1.2", CORPUS["fakeavceleb_per_attack"],
+            CORPUS["fakeavceleb_real"], rng, written)
+    files = {fmt: sum(w.fmt == fmt for w in written) for fmt in ("flac", "wav", "mp3")}
+    return {"paths": paths, "written": written, "gen_s": time.perf_counter() - t0,
+            "files": files,
+            "fakeavceleb": ("written" if have_mp3 else
+                            "left out: the system libmpg123 / libmp3lame is absent "
+                            f"(libmpg123 {mp3.available()}, libmp3lame {mp3.encoder_available()})")}
+
+
+def decode_checked(written) -> dict:
+    """Every FLAC and WAV decodes to the exact PCM written, every MP3 to the
+    written length within the codec's delay and frame padding at the written
+    rate; the decode ms per file of each format."""
+    from adaa_tpu_torch.data import base as dsp
+
+    ms = {}
+    for w in written:
+        t0 = time.perf_counter()
+        audio, sr = dsp.load_audio(w.path)
+        ms.setdefault(w.fmt, []).append((time.perf_counter() - t0) * 1e3)
+        check(sr == w.sample_rate and audio.shape[0] == 1, f"{w.path}: rate {sr}, {audio.shape}")
+        if w.fmt == "mp3":
+            check(abs(audio.shape[1] - w.pcm.size) < 4 * MP3_FRAME,
+                  f"{w.path}: {audio.shape[1]} samples decoded of {w.pcm.size} written")
+        else:
+            check(np.array_equal(audio[0], w.pcm.astype(np.float32) / np.float32(32768)),
+                  f"{w.path}: the decoded PCM differs from the written")
+    return {fmt: float(np.mean(v)) for fmt, v in ms.items()}
+
+
+class captured_log:
+    """The root logger's INFO records as text, for the CLIs' log lines."""
+
+    def __enter__(self):
+        import io
+        import logging
+
+        self.root, self.text = logging.getLogger(), io.StringIO()
+        self.handler, self.level = logging.StreamHandler(self.text), self.root.level
+        self.root.addHandler(self.handler)
+        self.root.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.root.removeHandler(self.handler)
+        self.root.setLevel(self.level)
+
+    def value(self) -> str:
+        return self.text.getvalue()
+
+
+def raw_mode_checked(name, cfg, corpus_args, models, counters, card) -> dict:
+    """Raw-mode PGD-10 (``--raw_from_dataset``) at B=64: on the val subset, a
+    callback run whose first batch is recomputed bit for bit through the
+    trim, then the CLI's raw and plain runs (launches, reports); on the
+    larger train subset, ``generate_attacks`` alone in both modes with the
+    models and manifests built before the clock starts (examples/s of each
+    run, modes in ABBA order, raw mode's extra wall within each adjacent
+    pair), the device's idle share in one profiled run of
+    each mode, taken against that run's own wall; and the host round trip of
+    the re-preprocessing."""
+    from adaa_tpu_torch import metrics
+    from adaa_tpu_torch.data import base as dsp
+    from adaa_tpu_torch.eval import generate_attacks
+    from adaa_tpu_torch.scripts import evaluate_models_on_adversarial_attacks as adv_cli
+    from adaa_tpu_torch.scripts._common import build_dataset
+    from adaa_tpu_torch.utils import profiling
+    from torch.autograd import DeviceType
+
+    seed, srs = 20, np.full(RB, 16_000, np.int32)
+    victim = models.load_model(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+    attack_model = models.load_model(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+    dataset = build_dataset(corpus_args["paths"], "val", return_meta=True, return_raw=True)
+    n_batches = len(dataset) // RB
+    check(n_batches >= 2, f"val subset of {len(dataset)} rows: fewer than two batches of {RB}")
+    seen = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        np.random.seed(seed)
+        generate_attacks(victim, dataset, "PGD", attack_model, RB,
+                         generator=torch.Generator("cuda").manual_seed(seed),
+                         on_attack_end_callback=lambda **kw: seen.append(kw),
+                         raw_sample_from_dataset=True)
+        kw = seen[0]
+        repro, _ = dsp.wavefake_preprocessing_on_batch(kw["batch_x_attacked"], srs)
+        with torch.no_grad():
+            preds = torch.sigmoid(victim.eval()(torch.from_numpy(repro).cuda()).squeeze(1))
+        preds = preds.cpu().numpy()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    changed = int((repro != kw["batch_x_attacked"]).any(axis=1).sum())
+
+    attacked = torch.from_numpy(kw["batch_x_attacked"]).cuda()
+    round_trip = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves, _ = dsp.wavefake_preprocessing_on_batch(attacked.cpu().numpy(), srs)
+        torch.from_numpy(waves).to("cuda")
+        torch.cuda.synchronize()
+        round_trip.append((time.perf_counter() - t0) * 1e3)
+
+    out = {"val_rows": len(dataset), "batches": n_batches, "card": card,
+           "recompute_max_abs_err": float(np.abs(preds - kw["batch_preds"]).max()),
+           "reprocessed_waves_changed": changed,
+           "reprocess_round_trip_host_ms_per_batch": statistics.median(round_trip)}
+
+    for mode in ("plain", "raw"):  # the CLI end to end: launches, report, metric line
+        extra = ["--raw_from_dataset"] if mode == "raw" else []
+        args = adv_cli.parse_args([*corpus_args["flags"], "--attack", "PGD", *extra])
+        zero(counters)
+        np.random.seed(seed)
+        report = adv_cli.run(args, cfg, cfg)
+        torch.cuda.synchronize()
+        out[mode] = {"cli_launches": snapshot(counters), "report": report}
+        report_ok(f"{name} {mode}-mode PGD", report)
+        print(metrics.format_metrics("adv_eval", report), flush=True)
+
+    timed = {}
+    for mode in ("plain", "raw"):  # the same oversampled rows in both modes
+        np.random.seed(seed)
+        timed[mode] = build_dataset(corpus_args["paths"], "train", return_raw=mode == "raw")
+    n_timed = len(timed["raw"]) // RB
+
+    def attack_run(mode: str) -> float:
+        """The wall of one ``generate_attacks`` over the train subset."""
+        np.random.seed(seed)  # the loader's shuffle: the same batches in each run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_attacks(victim, timed[mode], "PGD", attack_model, RB,
+                         generator=torch.Generator("cuda").manual_seed(seed),
+                         raw_sample_from_dataset=mode == "raw")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # four adjacent (plain, raw) pairs in ABBA order: the host's speed drifts
+    # between runs by more than raw mode's cost, less within a pair
+    order = ("plain", "raw", "raw", "plain") * 2
+    all_walls = [attack_run(mode) for mode in order]
+    walls = {mode: [w for m, w in zip(order, all_walls) if m == mode] for mode in ("plain", "raw")}
+    pairs = [dict(zip(order[i:i + 2], all_walls[i:i + 2])) for i in range(0, len(order), 2)]
+    raw_cost = [p["raw"] / p["plain"] - 1 for p in pairs]
+    for mode, w in walls.items():
+        mid = statistics.median(w)
+        out[mode].update({"timed_rows": len(timed[mode]), "timed_batches": n_timed,
+                          "wall_s": w, "examples_per_sec": [n_timed * RB / x for x in w],
+                          "median_examples_per_sec": n_timed * RB / mid,
+                          "spread": (max(w) - min(w)) / mid,
+                          "ms_per_batch": 1e3 * mid / n_timed})
+        # the device's busy time over the wall of the same profiled run: how
+        # far the host holds the card back (the profiler's own cost included)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            wall = attack_run(mode)
+        busy_ms = profiling._busy_us([(e.time_range.start, e.time_range.end)
+                                      for e in prof.events()
+                                      if e.device_type == DeviceType.CUDA]) / 1e3
+        out[mode].update({"profiled_wall_s": wall, "device_busy_ms": busy_ms,
+                          "device_idle_share": 1 - busy_ms / (1e3 * wall)})
+    out["round_trip_share_of_raw_batch"] = (out["reprocess_round_trip_host_ms_per_batch"]
+                                            / out["raw"]["ms_per_batch"])
+    out["raw_over_plain_wall_paired"] = {"each": raw_cost, "median": statistics.median(raw_cost)}
+    check(np.array_equal(preds, kw["batch_preds"]),
+          f"{name}: the victim's predictions on the re-preprocessed attacked batch differ "
+          f"from the callback's by {out['recompute_max_abs_err']}")
+    check(changed >= 1, f"{name}: the trim changed no attacked wave of the first batch")
+    got = out["raw"]["cli_launches"]
+    want = got["layer0"]["bwd"] == 10 * n_batches and got["layer0"]["fwd"] >= 10 * n_batches
+    if name == "fused":
+        want = (want and got["lfcc"]["fwd"] >= 10 * n_batches
+                and got["trunk"]["fwd"] >= 20 * n_batches and got["trunk"]["bwd"] == 20 * n_batches)
+    else:
+        want = want and not launched(got, ("lfcc", "trunk"))
+    check(want and not launched(got, ("pool", "b2n")), f"{name} raw-mode launches {got}")
+    return out
+
+
+def phase20_corpus(bench, models, counters, card) -> dict:
+    """The real-corpus path: a mini-corpus on disk in the three published
+    layouts, decoded exactly, one epoch of clean training on it
+    (``train_models``, -b 64, configs/training/lcnn.yaml), then raw-mode
+    PGD-10 white-box evaluations of that checkpoint on the bf16 LCNN in the
+    default and the fused configuration."""
+    import tempfile
+
+    import yaml
+
+    from adaa_tpu_torch.scripts import train_models
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {"phase": 20, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_corpus(os.path.join(tmp, "corpora"))
+        out["corpus"] = {"gen_s": data["gen_s"], "files": data["files"],
+                         "fakeavceleb": data["fakeavceleb"]}
+        out["decode_ms_per_file"] = decode_checked(data["written"])
+        paths = [str(p) if p is not None else "none" for p in data["paths"].values()]
+        corpus_args = {"paths": paths, "flags": ["--asv_path", paths[0], "--wavefake_path",
+                                                 paths[1], "--celeb_path", paths[2]]}
+        cwd = os.getcwd()
+        os.chdir(tmp)  # train_models writes configs/ in the working directory
+        try:
+            with open(os.path.join(repo, "configs/training/lcnn.yaml")) as f:
+                config = yaml.safe_load(f)
+            args = train_models.parse_args([*corpus_args["flags"], "-b", "64", "-e", "1",
+                                            "--ckpt", os.path.join(tmp, "trained_models")])
+            t0 = time.perf_counter()
+            with captured_log() as log:
+                ckpt, cfg_path = train_models.run(args, config)
+            out["train"] = {"wall_s": time.perf_counter() - t0, "batch": 64}
+            with open(cfg_path) as f:
+                chained = yaml.safe_load(f)
+        finally:
+            os.chdir(cwd)
+        missing = [n for n in ("train/loss", "test/accuracy", "test/eer") if n not in log.value()]
+        check(not missing and os.path.exists(ckpt), f"train_models on the corpus: no {missing}")
+        for name, params in (("default", bench.CONFIG), ("fused", bench.FUSED_CONFIG)):
+            cfg = {**chained, "model": {**chained["model"], "parameters": params}}
+            out[name] = raw_mode_checked(name, cfg, corpus_args, models, counters, card)
+            torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def phase9_highest_gradient(attacks, models, set_seed) -> None:
     """The f32-highest input gradient with torch's default TF32 flags vs the
     same gradient with TF32 off globally; cuDNN deterministic in both, so
@@ -1107,6 +1396,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     from adaa_tpu_torch import attacks, bench, models
+    from adaa_tpu_torch.data import mp3, native
     from adaa_tpu_torch.models import rawnet3
     from adaa_tpu_torch.ops import _build, b2n, layer0, lfcc_fused, pool, trunk
     from adaa_tpu_torch.utils import set_seed
@@ -1114,19 +1404,25 @@ def main() -> None:
 
     card = card_line()
     print(card, flush=True)
+    gxx = subprocess.run([_build.cxx_path(), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
     emit({"phase": 0, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "installed": {m: importlib.util.find_spec(m) is not None
-                        for m in ("yaml", "sklearn", "pandas", "scipy")}})
+                        for m in ("yaml", "sklearn", "pandas", "scipy")},
+          "host": {"g++": gxx[0] if gxx else None, "libmpg123": mp3.available(),
+                   "libmp3lame": mp3.encoder_available()}})
 
     sources = ("layer0", "lfcc", "trunk", "pool", "b2n")
     t0 = time.perf_counter()
-    _build.build_all(sources)
+    each_s = _build.build_all((*sources, "dsp"))
     for op in (layer0, lfcc_fused, trunk, pool, b2n):
         op._library()
+    native.library()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln] for name in sources}
-    emit({"phase": 1, "build_s": build_s, "ptxas": ptxas,
+    emit({"phase": 1, "build_s": build_s, "dsp_build_s": each_s["dsp"], "build_s_each": each_s,
+          "ptxas": ptxas,
           "sass_counts": {name: sass_counts(_build.BUILD_DIR / f"lib{name}.so")
                           for name in ("layer0", "trunk", "b2n")}})
 
@@ -1174,6 +1470,7 @@ def main() -> None:
     phase17_train(attacks, bench, layer0, all_counters, card)
     phase18_train_models(bench, card)
     phase19_clis(models, set_seed)
+    phase20_corpus(bench, models, all_counters, card)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

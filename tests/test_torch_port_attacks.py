@@ -216,7 +216,7 @@ def test_package_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(adaa_tpu_torch.__path__, 'adaa_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'adaa_tpu', 'triton', 'sklearn', 'pandas',\n"
-        "                   'yaml') if m in sys.modules]\n"
+        "                   'yaml', 'msgpack') if m in sys.modules]\n"
         "need = {'adaa_tpu_torch.models.rawnet3', 'adaa_tpu_torch.ops.sinc_conv',\n"
         "        'adaa_tpu_torch.ops.pool', 'adaa_tpu_torch.ops.b2n',\n"
         "        'adaa_tpu_torch.models.specrnet', 'adaa_tpu_torch.attacks.fab',\n"
@@ -225,7 +225,10 @@ def test_package_imports_no_jax():
         "        'adaa_tpu_torch.training.train_state', 'adaa_tpu_torch.training.gd_trainer',\n"
         "        'adaa_tpu_torch.training.adv_trainer', 'adaa_tpu_torch.utils.checkpoints',\n"
         "        'adaa_tpu_torch.scripts.train_models',\n"
-        "        'adaa_tpu_torch.scripts.train_models_on_adversarial_attacks'}\n"
+        "        'adaa_tpu_torch.scripts.train_models_on_adversarial_attacks',\n"
+        "        'adaa_tpu_torch.data.native', 'adaa_tpu_torch.data.base', 'adaa_tpu_torch.data.mp3',\n"
+        "        'adaa_tpu_torch.data.datasets', 'adaa_tpu_torch.data.detection',\n"
+        "        'adaa_tpu_torch.data.misc', 'adaa_tpu_torch.utils.msgpack'}\n"
         "assert len(mods) >= 30 and need <= set(mods) and not bad, (mods, bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

@@ -36,22 +36,12 @@ from adaa_tpu_torch.eval import evaluate_nn as tevaluate_nn
 from adaa_tpu_torch.eval.qualitative import AttackAnalyser as TAnalyser
 from adaa_tpu_torch.scripts import evaluate_models as tcli_eval
 from adaa_tpu_torch.scripts import evaluate_models_on_adversarial_attacks as tcli_adv
-from tests.torch_port_common import (CFG_F32, lcnn_variables, port_lcnn, port_specrnet,
-                                     specrnet_variables)
+from tests.torch_port_common import (CFG_F32, KEYS, assert_reports_close, lcnn_variables,
+                                     port_lcnn, port_specrnet, specrnet_variables)
 
 torch.set_num_threads(2)
 
 LENGTH = 16_000
-KEYS = ("eer", "accuracy", "precision", "recall", "f1_score", "auc")
-
-
-def _assert_reports_close(a, b, atol):
-    assert set(a) == set(b) == set(KEYS)
-    for k in KEYS:
-        if np.isnan(a[k]) or np.isnan(b[k]):
-            assert np.isnan(a[k]) and np.isnan(b[k]), (k, a[k], b[k])
-        else:
-            assert abs(a[k] - b[k]) <= atol, (k, a[k], b[k])
 
 
 def _metric_cases():
@@ -77,7 +67,7 @@ def test_metrics_match_sklearn_path(case):
         want = jmetrics.classification_report(y, p, labels)
         ref_roc = roc_curve(y, -p)
     got = tmetrics.classification_report(y, p, labels)
-    _assert_reports_close(got, want, 1e-12)
+    assert_reports_close(got, want, 1e-12)
     for a, b in zip(tmetrics.roc_curve(y, -p), ref_roc):
         np.testing.assert_array_equal(a, b)
     assert tmetrics.format_metrics("eval", got) == jmetrics.format_metrics("eval", want)
@@ -119,7 +109,7 @@ def test_evaluate_nn_matches_jax(shared):
     model = shared["tspec"].train()
     np.random.seed(3)
     got = tevaluate_nn(model, TSynthetic(**shared["data"]), batch_size=4)
-    _assert_reports_close(got, want, 1e-4)
+    assert_reports_close(got, want, 1e-4)
     assert all(m.training for m in model.modules())  # the caller's mode comes back
     model.eval()
     with pytest.raises(ValueError, match="no full batches"):
@@ -152,7 +142,7 @@ def test_generate_attacks_matches_jax(shared, monkeypatch, attack, surrogate, vi
         attack_model=shared[f"t{surrogate}"], batch_size=4,
         generator=torch.Generator().manual_seed(0),
         on_attack_end_callback=lambda **kw: calls["torch"].append(kw))
-    _assert_reports_close(got, want, 1e-4)
+    assert_reports_close(got, want, 1e-4)
     assert len(calls["jax"]) == len(calls["torch"]) == 2
     for kj, kt in zip(calls["jax"], calls["torch"]):
         assert set(kj) == set(kt)
@@ -204,21 +194,6 @@ def test_cli_flags_match_jax_scripts(monkeypatch, name):
     tscript = {"evaluate_models": tcli_eval,
                "evaluate_models_on_adversarial_attacks": tcli_adv}[name]
     assert _flags(tscript.build_parser()) == _flags(jparser)
-
-
-def test_raw_mode_and_real_datasets_raise():
-    args = tcli_adv.parse_args(["--asv_path", "synthetic:8:2000", "--cpu", "--raw_from_dataset",
-                                "--attack", "FGSM"])
-    cfg = {"data": {"seed": 1}, "model": {"name": "lcnn", "parameters": CFG_F32}}
-    with pytest.raises(NotImplementedError, match="raw mode"):
-        tcli_adv.run(args, cfg, cfg)
-    for script in (tcli_eval, tcli_adv):
-        args = script.parse_args(["--cpu"])  # the default ASVspoof path
-        with pytest.raises(NotImplementedError, match="synthetic"):
-            script.run(args, cfg, *([None] if script is tcli_adv else []))
-    ckpt = {**cfg, "checkpoint": {"path": "model.msgpack"}}
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        tcli_eval.run(tcli_eval.parse_args(["--cpu", "--asv_path", "synthetic:8"]), ckpt)
 
 
 def test_cli_config_entry_runs_a_transfer_evaluation(tmp_path, monkeypatch):

@@ -65,7 +65,7 @@ from adaa_tpu_torch.training import adv_trainer as tadv
 from adaa_tpu_torch.training import gd_trainer as tgd
 from adaa_tpu_torch.training import train_state as tts
 from adaa_tpu_torch.utils import checkpoints as tckpt
-from tests.torch_port_common import (CFG_BF16, CFG_F32, lcnn_variables, port_lcnn,
+from tests.torch_port_common import (CFG_BF16, CFG_F32, cli_dir, lcnn_variables, port_lcnn,
                                      port_rawnet3, port_specrnet, rawnet3_variables,
                                      specrnet_variables, waves)
 
@@ -585,18 +585,6 @@ def test_checkpoint_loads_in_both_packages(tmp_path):
     with torch.no_grad():
         zt = model(torch.from_numpy(x)).numpy()
     assert np.abs(zt - zj).max() <= 1e-5
-
-
-@pytest.fixture
-def cli_dir(tmp_path, monkeypatch):
-    """The CLIs run in ``tmp_path`` (they write ``configs/`` and
-    ``trained_models/`` there); the root logger's handlers come back after."""
-    monkeypatch.chdir(tmp_path)
-    root = logging.getLogger()
-    handlers, level = list(root.handlers), root.level
-    yield tmp_path
-    root.handlers[:] = handlers
-    root.setLevel(level)
 
 
 def test_training_clis_run_on_cpu(cli_dir, caplog):

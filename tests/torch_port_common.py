@@ -1,7 +1,13 @@
 """Shared pieces of the adaa_tpu_torch tests: sets of LCNN, SpecRNet and
 RawNet3 weights, made with numpy from a seed, for the JAX models and their
-torch ports."""
+torch ports, the JAX package's host DSP library built apart, and the
+report and CLI helpers of the evaluation tests."""
+import logging
+import subprocess
+from pathlib import Path
+
 import numpy as np
+import pytest
 import torch
 
 from adaa_tpu_torch import models as tmodels
@@ -15,6 +21,54 @@ CFG_F32 = {"input_channels": 1, "frontend_algorithm": ["lfcc"]}
 CFG_BF16 = {**CFG_F32, "compute_dtype": "bfloat16"}
 # the fused configuration: fused LFCC kernel + fused trunk segments
 CFG_FUSED = {**CFG_BF16, "fused_frontend": True, "fused_trunk": True}
+
+
+KEYS = ("eer", "accuracy", "precision", "recall", "f1_score", "auc")  # a report's keys
+
+
+def assert_reports_close(a, b, atol):
+    """Two classification reports: the same keys, each within ``atol`` or both nan."""
+    assert set(a) == set(b) == set(KEYS)
+    for k in KEYS:
+        if np.isnan(a[k]) or np.isnan(b[k]):
+            assert np.isnan(a[k]) and np.isnan(b[k]), (k, a[k], b[k])
+        else:
+            assert abs(a[k] - b[k]) <= atol, (k, a[k], b[k])
+
+
+@pytest.fixture
+def cli_dir(tmp_path, monkeypatch):
+    """The CLIs run in ``tmp_path`` (they write ``logs/``, ``configs/`` and
+    ``trained_models/`` there); the root logger's handlers come back after."""
+    monkeypatch.chdir(tmp_path)
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    yield tmp_path
+    root.handlers[:] = handlers
+    root.setLevel(level)
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's host DSP library (``native/adaa_dsp.cpp``), built by
+    the test into a directory of its own with the flags of
+    ``native/Makefile``. Left to itself, ``adaa_tpu.data.native`` runs
+    ``make -C native`` in every test worker, and concurrent makes race
+    (a worker that loses falls back to numpy, or has no GSM codec). The
+    loader's state comes back at teardown, so the JAX package's own tests
+    in the same worker see ``native/`` as before."""
+    from adaa_tpu.data import native
+
+    with pytest.MonkeyPatch.context() as mp:
+        if native._lib is None:
+            lib = tmp_path_factory.mktemp("jax_native") / "libadaa_dsp.so"
+            src = Path(__file__).resolve().parents[1] / "native" / "adaa_dsp.cpp"
+            subprocess.run(["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-shared", "-o",
+                            str(lib), str(src)], check=True, capture_output=True)
+            for name, value in (("_LIB_PATH", lib), ("_lib", None), ("_tried", False)):
+                mp.setattr(native, name, value)
+        assert native.available()
+        yield native
 
 
 def lcnn_variables(seed: int = 0):
