@@ -1,9 +1,11 @@
 """Attack registry + builder (port of ``adaa_tpu/attacks/__init__.py``).
 
 ``ATTACK_REGISTRY`` has the JAX registry's keys and parameters, which
-mirror the reference's ``AttackEnum``: FGSM, PGD, PGDL2 and FAB. The
-extra attacks are not ported yet: building one raises
-``NotImplementedError`` (see ROADMAP.md, queue 1).
+mirror the reference's ``AttackEnum``: FGSM, PGD, PGDL2 and FAB.
+``EXTRA_ATTACKS`` has the JAX package's other 25 names: CW and OnePixel
+(adapted in the reference's library, outside its ``AttackEnum``), APGD /
+APGDT, Square, AutoAttack and the stock torchattacks family
+(``attacks/extra.py``), each with its builder's defaults.
 """
 from __future__ import annotations
 
@@ -19,19 +21,14 @@ from adaa_tpu_torch.attacks.core import (  # noqa: F401
     two_class_ce,
     two_class_logits,
 )
+from adaa_tpu_torch.attacks import extra as _extra
+from adaa_tpu_torch.attacks.apgd import apgd, apgdt
+from adaa_tpu_torch.attacks.composite import autoattack, multiattack  # noqa: F401
+from adaa_tpu_torch.attacks.cw import cw
 from adaa_tpu_torch.attacks.fab import fab
 from adaa_tpu_torch.attacks.gradient import fgsm, pgd, pgdl2
-
-
-def _not_ported(name: str) -> Callable:
-    def builder(logits_fn, **params):
-        raise NotImplementedError(
-            f"attack '{name}' is not ported to adaa_tpu_torch yet (ROADMAP.md, queue 1)"
-        )
-
-    builder.__name__ = name.lower()
-    return builder
-
+from adaa_tpu_torch.attacks.onepixel import onepixel
+from adaa_tpu_torch.attacks.square import square
 
 # name -> (builder | None, params) — mirrors AttackEnum (aa_types.py:5-24)
 ATTACK_REGISTRY: Dict[str, Tuple[Optional[Callable], Dict[str, Any]]] = {
@@ -51,13 +48,31 @@ ATTACK_REGISTRY: Dict[str, Tuple[Optional[Callable], Dict[str, Any]]] = {
 }
 
 EXTRA_ATTACKS: Dict[str, Callable] = {
-    name: _not_ported(name)
-    for name in (
-        "CW", "OnePixel", "APGD", "APGDT", "Square", "AutoAttack", "VANILA",
-        "GN", "BIM", "RFGSM", "FFGSM", "TPGD", "EOTPGD", "MIFGSM", "NIFGSM",
-        "SINIFGSM", "VMIFGSM", "VNIFGSM", "DIFGSM", "UPGD", "Jitter",
-        "DeepFool", "TIFGSM", "SparseFool", "Pixle",
-    )
+    "CW": cw,
+    "OnePixel": onepixel,
+    "APGD": apgd,
+    "APGDT": apgdt,
+    "Square": square,
+    "AutoAttack": autoattack,
+    "VANILA": _extra.vanila,
+    "GN": _extra.gn,
+    "BIM": _extra.bim,
+    "RFGSM": _extra.rfgsm,
+    "FFGSM": _extra.ffgsm,
+    "TPGD": _extra.tpgd,
+    "EOTPGD": _extra.eotpgd,
+    "MIFGSM": _extra.mifgsm,
+    "NIFGSM": _extra.nifgsm,
+    "SINIFGSM": _extra.sinifgsm,
+    "VMIFGSM": _extra.vmifgsm,
+    "VNIFGSM": _extra.vnifgsm,
+    "DIFGSM": _extra.difgsm,
+    "UPGD": _extra.upgd,
+    "Jitter": _extra.jitter,
+    "DeepFool": _extra.deepfool,
+    "TIFGSM": _extra.tifgsm,
+    "SparseFool": _extra.sparsefool,
+    "Pixle": _extra.pixle,
 }
 
 

@@ -11,10 +11,17 @@ and argmax over (-z, z) is ``z > 0``.
 Attacks are functions ``(x01, y, generator) -> adv01`` over a captured
 ``logits_fn``; ``generator`` is the ``torch.Generator`` of their random
 start (None for attacks without one).
+
+An attack that draws random numbers beyond a random start is a
+``DrawnAttack``: ``draw(x, generator)`` takes every number it needs from
+the caller's generator, and ``run(x, y, draws)`` is deterministic in
+them. Where an attack draws afresh at each step, ``draw`` returns an
+iterator that draws one step's numbers when ``run`` asks for them, so
+the draws of a long attack are never all held at once.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +29,26 @@ from torch import nn
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]  # (B, L) -> (B, 1)
 AttackFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Generator]], torch.Tensor]
+
+
+def need_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("a random start needs the caller's torch.Generator")
+    return generator
+
+
+class DrawnAttack:
+    """An attack split into its draws and a deterministic core (module doc).
+
+    Calling it draws from the caller's generator, then runs."""
+
+    def __init__(self, draw: Callable[[torch.Tensor, torch.Generator], Any],
+                 run: Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]):
+        self.draw = draw
+        self.run = run
+
+    def __call__(self, x, y, generator=None):
+        return self.run(x, y, self.draw(x, need_generator(generator)))
 
 
 def make_logits_fn(model: nn.Module) -> LogitsFn:
@@ -92,6 +119,15 @@ def attack_in_wave_space(attack_fn: AttackFn) -> AttackFn:
         return revert_minmax(adv01, mn, mx)
 
     return wrapped
+
+
+def z_and_grad(logits_fn: LogitsFn, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The logit z (B,) at x and dz/dx: one forward and one backward."""
+    xg = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        z = logits_fn(xg).squeeze(-1)
+        (g,) = torch.autograd.grad(z.sum(), xg)
+    return z.detach(), g
 
 
 def flat_norms(x: torch.Tensor, ord: str) -> torch.Tensor:

@@ -64,13 +64,6 @@ def fab(
     ord_name = _NORM_ORD[norm]
     merged = os.environ.get("ADAA_FAB_MERGED") == "1"
 
-    def z_and_grad(x):
-        x = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            z = logits_fn(x).squeeze(-1)
-            (g,) = torch.autograd.grad(z.sum(), x)
-        return z.detach(), g
-
     def predict(x):
         with torch.no_grad():
             return (logits_fn(x).squeeze(-1) > 0).long()
@@ -129,7 +122,7 @@ def fab(
             return torch.where(is_adv.reshape(shape1), im2 + (x1 - im2) * beta, x1)
 
         for _ in range(steps):
-            z, g = z_and_grad(x1)
+            z, g = core.z_and_grad(logits_fn, x1)
             if merged:  # bookkeeping and pull-back before the update (module doc)
                 is_adv = (z > 0).long() != y
                 adv, res2 = bookkeep(x1, is_adv, adv, res2)

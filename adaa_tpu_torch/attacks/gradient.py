@@ -8,8 +8,6 @@ is the reference torchattacks loops'. Each step is one
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from adaa_tpu_torch.attacks import core
@@ -28,12 +26,6 @@ def _make_cost_grad(logits_fn: core.LogitsFn, targeted: bool):
         return g
 
     return grad_fn
-
-
-def _need_generator(generator: Optional[torch.Generator]) -> torch.Generator:
-    if generator is None:
-        raise ValueError("a random start needs the caller's torch.Generator")
-    return generator
 
 
 def fgsm(logits_fn: core.LogitsFn, eps: float = 0.007,
@@ -63,7 +55,7 @@ def pgd(
         x = x.detach()
         adv = x
         if random_start:
-            noise = torch.empty_like(x).uniform_(-eps, eps, generator=_need_generator(generator))
+            noise = torch.empty_like(x).uniform_(-eps, eps, generator=core.need_generator(generator))
             adv = (x + noise).clamp(0.0, 1.0)
         for _ in range(steps):
             g = grad_fn(adv, y)
@@ -94,7 +86,7 @@ def pgdl2(
         per_sample = (b,) + (1,) * (x.dim() - 1)
         adv = x
         if random_start:
-            gen = _need_generator(generator)
+            gen = core.need_generator(generator)
             delta = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
             n = core.flat_norms(delta, "l2").reshape(per_sample)
             r = torch.rand(per_sample, generator=gen, device=x.device, dtype=x.dtype)

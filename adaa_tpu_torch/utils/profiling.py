@@ -56,6 +56,16 @@ def _busy_us(intervals: List[tuple]) -> float:
     return busy
 
 
+def device_busy_ms(prof) -> float:
+    """Device busy time (ms, the union of kernel intervals) of a finished
+    ``torch.profiler.profile``, read from its raw events: ``prof.events()``
+    builds a Python object per event, ~70 us each, which over the ~10^5
+    kernels of an attack costs more than the attack."""
+    events = prof.profiler.kineto_results.events()
+    return _busy_us([(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                     for e in events if e.device_type() == DeviceType.CUDA]) / 1e3
+
+
 def profile_attack(batch: Optional[int] = None, seed: int = 0, top: int = 30,
                    fused: bool = False, model: str = "lcnn",
                    config: Optional[Dict[str, Any]] = None,

@@ -8,7 +8,7 @@ exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit; the host toolchain and
    codecs (``g++``'s version, whether the system libmpg123 and libmp3lame
-   load);
+   load); which of yaml, sklearn, pandas, scipy and matplotlib import;
 1. build the five kernels from ``adaa_tpu_torch/csrc`` (one nvcc per
    source) and the host DSP library ``csrc/dsp.cpp`` (g++), all at once
    (timed, each build's seconds), with each kernel's ptxas registers and
@@ -135,13 +135,37 @@ exit code is not 0:
     runs with their ``adv_eval/*`` lines, the reports' keys finite, layer
     0's launches 10 backward and >= 10 forward per batch (fused: LFCC >=
     10, trunk >= 20 forward and 20 backward per batch) in the raw run; the
-    examples/s of ``generate_attacks`` alone, raw and plain, four runs each
+    examples/s of ``generate_attacks`` alone, raw and plain, two runs each
     in ABBA order over the train subset (about ten batches) with models
     and manifests built beforehand, their spread, raw mode's extra wall
     within each adjacent (plain, raw) pair, and the device's idle
     share in one profiled run of each mode against that run's own wall;
     and the host ms per batch of the re-preprocessing round trip (device ->
-    host, trim + pad, -> device) with its share of a raw-mode batch.
+    host, trim + pad, -> device) with its share of a raw-mode batch;
+21. every name in ``EXTRA_ATTACKS`` through ``build_attack`` +
+    ``attack_in_wave_space`` on the bf16 LCNN default configuration
+    (64,600-sample waves, random weights from seed 0): the gradient
+    attacks at B=64, Square, OnePixel, Pixle and AutoAttack at B=8, with
+    the depth cuts the line lists under ``reduced`` (CW 100 steps, APGD
+    and APGDT 20, Square 200 queries, OnePixel 5 generations of 399,
+    Pixle 2 x 20, AutoAttack as ``multiattack`` over its four members at
+    those cuts with FAB at 20 steps). Each is checked in [0, 1] space:
+    finite and in the box, in its Linf ball (OnePixel: at most one
+    coordinate changed; Pixle: only values its row held; VANILA: its
+    input), and its layer-0 launches equal to its own count (CW: forwards
+    = dx = the steps it ran); each with its success rate over the rows
+    correct at first, then the seconds and examples/s of a second run and
+    the device's idle share in a third, profiled run. Then APGD-CE (20
+    steps) on the fused configuration at B=64 with its LFCC and trunk
+    launches against its count, and the qualitative pipeline on synthetic
+    n=128:
+    ``save_adversarial_dataset`` with APGD over 2 batches (the ``.npz``
+    keys and shapes, its robust accuracy that of the saved predictions),
+    a white-box ``generate_attacks(attack_name="APGD")`` with the
+    ``AttackAnalyser`` callback, ``AttackPostAnalyser.
+    read_waves_and_calc_metrics`` on the pairs it wrote (one row per pair,
+    finite MCD >= 0, ``mcd_metrics.csv``) and the plots where matplotlib
+    imports.
 
 The last lines are the kernels' JSON summary (all nine kernel entries),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -1202,7 +1226,6 @@ def raw_mode_checked(name, cfg, corpus_args, models, counters, card) -> dict:
     from adaa_tpu_torch.scripts import evaluate_models_on_adversarial_attacks as adv_cli
     from adaa_tpu_torch.scripts._common import build_dataset
     from adaa_tpu_torch.utils import profiling
-    from torch.autograd import DeviceType
 
     seed, srs = 20, np.full(RB, 16_000, np.int32)
     victim = models.load_model(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
@@ -1271,9 +1294,9 @@ def raw_mode_checked(name, cfg, corpus_args, models, counters, card) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    # four adjacent (plain, raw) pairs in ABBA order: the host's speed drifts
+    # two adjacent (plain, raw) pairs in ABBA order: the host's speed drifts
     # between runs by more than raw mode's cost, less within a pair
-    order = ("plain", "raw", "raw", "plain") * 2
+    order = ("plain", "raw", "raw", "plain")
     all_walls = [attack_run(mode) for mode in order]
     walls = {mode: [w for m, w in zip(order, all_walls) if m == mode] for mode in ("plain", "raw")}
     pairs = [dict(zip(order[i:i + 2], all_walls[i:i + 2])) for i in range(0, len(order), 2)]
@@ -1289,9 +1312,7 @@ def raw_mode_checked(name, cfg, corpus_args, models, counters, card) -> dict:
         # far the host holds the card back (the profiler's own cost included)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             wall = attack_run(mode)
-        busy_ms = profiling._busy_us([(e.time_range.start, e.time_range.end)
-                                      for e in prof.events()
-                                      if e.device_type == DeviceType.CUDA]) / 1e3
+        busy_ms = profiling.device_busy_ms(prof)
         out[mode].update({"profiled_wall_s": wall, "device_busy_ms": busy_ms,
                           "device_idle_share": 1 - busy_ms / (1e3 * wall)})
     out["round_trip_share_of_raw_batch"] = (out["reprocess_round_trip_host_ms_per_batch"]
@@ -1359,6 +1380,248 @@ def phase20_corpus(bench, models, counters, card) -> dict:
     return out
 
 
+# phase 21: every extra attack on the bf16 LCNN default configuration at full
+# width. Gradient attacks at B=64; the searches and the composite at B=8.
+# Depth cuts (the registry's defaults in brackets), listed in the line:
+EXTRA_SEARCH_BATCH = 8
+EXTRA_SEARCH = ("Square", "OnePixel", "Pixle", "AutoAttack")
+EXTRA_CUTS = {"CW": {"steps": 100}, "APGD": {"steps": 20}, "APGDT": {"steps": 20},
+              "Square": {"n_queries": 200}, "OnePixel": {"steps": 5},
+              "Pixle": {"restarts": 2, "max_iterations": 20}}
+EXTRA_REDUCED = {"CW": "steps 100 (1000)", "APGD": "steps 20 (100)", "APGDT": "steps 20 (100)",
+                 "Square": "n_queries 200 (5000)", "OnePixel": "steps 5 (75), popsize 400",
+                 "Pixle": "restarts 2 x max_iterations 20 (20 x 100)",
+                 "AutoAttack": "multiattack of APGD-CE 20, APGD-T 20, FAB 20, Square 200 "
+                               "(100, 100, 100, 5000)"}
+EXTRA_EPS = 8 / 255  # the stock attacks' default Linf eps (BIM: 4/255)
+EXTRA_LINF = {"BIM": 4 / 255, **{name: EXTRA_EPS for name in (
+    "RFGSM", "FFGSM", "TPGD", "EOTPGD", "MIFGSM", "NIFGSM", "SINIFGSM", "VMIFGSM", "VNIFGSM",
+    "DIFGSM", "UPGD", "Jitter", "TIFGSM", "APGD", "APGDT", "Square", "AutoAttack")}}
+
+
+def expected_layer0(name: str, batch: int):
+    """(forwards, dx) of the layer-0 kernel in one batch of ``name`` at the
+    phase's cuts: one forward per detector call, one dx per gradient (CW:
+    None, it stops early at a checkpoint)."""
+    bim = int(min(4 / 255 * 255 + 4, 1.25 * (4 / 255) * 255))
+    n_apgd = EXTRA_CUTS["APGD"]["steps"]
+    n_square = EXTRA_CUTS["Square"]["n_queries"]
+    fab = (2 * 20 + 3, 20)  # predict, act, 2 x steps (fwd+bwd, predict), final predict
+    onepixel_rows = batch * (400 // 3 * 3)
+    table = {
+        "VANILA": (0, 0), "GN": (0, 0), "BIM": (bim, bim), "RFGSM": (1, 1), "FFGSM": (1, 1),
+        "TPGD": (8, 7), "EOTPGD": (20, 20), "MIFGSM": (5, 5), "NIFGSM": (5, 5),
+        "SINIFGSM": (25, 25), "VMIFGSM": (105, 105), "VNIFGSM": (105, 105),
+        "DIFGSM": (10, 10), "UPGD": (40, 40), "Jitter": (10, 10), "DeepFool": (50, 50),
+        "TIFGSM": (10, 10), "SparseFool": (30, 20),
+        "APGD": (n_apgd + 2, n_apgd + 1), "APGDT": (n_apgd + 2, n_apgd + 1),
+        "Square": (n_square + 2, 0),
+        "OnePixel": ((EXTRA_CUTS["OnePixel"]["steps"] + 1) * -(-onepixel_rows // 128), 0),
+        "Pixle": (2 + 2 * 20, 0),
+        # multiattack: the clean check and one check per member, then the members
+        "AutoAttack": (5 + 2 * (n_apgd + 2) + fab[0] + n_square + 2, 2 * (n_apgd + 1) + fab[1]),
+    }
+    return table.get(name)
+
+
+def extra_attack(attacks, name, logits_fn):
+    """The [0, 1]-space attack of phase 21: the registry's at the cuts;
+    AutoAttack as ``multiattack`` over its four members at the cuts."""
+    if name != "AutoAttack":
+        return attacks.build_attack(name, logits_fn, EXTRA_CUTS.get(name))
+    from adaa_tpu_torch.attacks.apgd import apgd, apgdt
+    from adaa_tpu_torch.attacks.fab import fab
+    from adaa_tpu_torch.attacks.square import square
+
+    return attacks.multiattack(logits_fn, [
+        apgd(logits_fn, eps=EXTRA_EPS, steps=EXTRA_CUTS["APGD"]["steps"], loss="ce"),
+        apgdt(logits_fn, eps=EXTRA_EPS, steps=EXTRA_CUTS["APGDT"]["steps"]),
+        fab(logits_fn, norm="Linf", eps=EXTRA_EPS, steps=20, n_restarts=1, n_classes=2),
+        square(logits_fn, eps=EXTRA_EPS, n_queries=EXTRA_CUTS["Square"]["n_queries"])])
+
+
+def busy_ms_of(fn) -> tuple:
+    """(wall s, device busy ms) of one call of ``fn`` under a CUDA-activity
+    profile."""
+    from adaa_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, profiling.device_busy_ms(prof)
+
+
+def extra_checked(attacks, name, path, counters) -> dict:
+    """One batch of ``name`` through ``attack_in_wave_space``, checked in
+    [0, 1] space, with its launches; then a second run's wall and
+    examples/s, and the device's idle share in a third, profiled run."""
+    model, _, x, y, gen = path
+    if name in EXTRA_SEARCH:
+        x, y = x[:EXTRA_SEARCH_BATCH], y[:EXTRA_SEARCH_BATCH]
+    logits_fn = attacks.make_logits_fn(model)
+    atk01 = extra_attack(attacks, name, logits_fn)
+    seen = {}
+
+    def recorded(x01, yy, generator):
+        seen["x01"], seen["adv01"] = x01, atk01(x01, yy, generator)
+        return seen["adv01"]
+
+    attack = attacks.attack_in_wave_space(recorded)
+    torch.cuda.synchronize()
+    zero(counters)
+    adv = attack(x, y, gen)  # counted and checked; it also warms the attack's ops up
+    torch.cuda.synchronize()
+    got = snapshot(counters)
+    x01, adv01 = seen["x01"], seen["adv01"]
+    with torch.no_grad():
+        correct = attacks.predicted_label(logits_fn(x01)) == y
+        fooled = attacks.predicted_label(logits_fn(adv01)) != y
+    t0 = time.perf_counter()
+    attack(x, y, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof_wall, busy = busy_ms_of(lambda: attack(x, y, gen))
+    want = expected_layer0(name, x.shape[0])
+    res = {"batch": x.shape[0], "params": EXTRA_CUTS.get(name, {}),
+           "success_rate": float((correct & fooled).sum()) / max(int(correct.sum()), 1),
+           "correct_at_first": int(correct.sum()), "seconds": wall,
+           "examples_per_sec": x.shape[0] / wall, "profiled_wall_s": prof_wall,
+           "device_busy_ms": busy, "device_idle_share": 1 - busy / (1e3 * prof_wall),
+           "launches": got["layer0"], "expected_layer0": want,
+           "linf01": float((adv01 - x01).abs().max())}
+    check(tuple(adv.shape) == tuple(x.shape) and bool(torch.isfinite(adv01).all())
+          and float(adv01.min()) >= 0.0 and float(adv01.max()) <= 1.0,
+          f"{name}: output not finite in the [0, 1] box")
+    if name in EXTRA_LINF:
+        check(res["linf01"] <= EXTRA_LINF[name] + 1e-6, f"{name}: outside its eps ball {res}")
+    elif name == "VANILA":
+        check(torch.equal(adv01, x01), "VANILA changed its input")
+    elif name == "OnePixel":
+        check(int((adv01 != x01).sum(dim=1).max()) <= 1, "OnePixel changed more than a pixel")
+    elif name == "Pixle":
+        check(all(bool(torch.isin(a, b).all()) for a, b in zip(adv01, x01)),
+              "Pixle wrote a value its row did not hold")
+    lay = got["layer0"]
+    if name == "CW":  # stops right after a checkpoint step, or runs every step
+        steps, every = EXTRA_CUTS["CW"]["steps"], EXTRA_CUTS["CW"]["steps"] // 10
+        ok = lay["fwd"] == lay["bwd"] and (lay["fwd"] == steps or (lay["fwd"] - 1) % every == 0)
+        res["expected_layer0"] = "forwards = dx = the steps run"
+    else:
+        ok = (lay["fwd"], lay["bwd"]) == want
+    check(ok and not launched(got, [k for k in ALL_KERNELS if k != "layer0"]),
+          f"{name}: layer-0 launches {got}, expected {res['expected_layer0']}")
+    return res
+
+
+def phase21_fused_apgd(attacks, bench, counters) -> dict:
+    """APGD-CE at the cut on the fused configuration at B=64: the LFCC and
+    trunk kernels once per forward (trunk: both segments) and per dx."""
+    path = bench.setup(RB, seed=0, device="cuda", fused=True)
+    attack = attacks.attack_in_wave_space(
+        attacks.build_attack("APGD", attacks.make_logits_fn(path.model), EXTRA_CUTS["APGD"]))
+    zero(counters)
+    t0 = time.perf_counter()
+    adv = attack(path.x, path.y, path.generator)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = snapshot(counters)
+    fwd, dx = expected_layer0("APGD", RB)
+    want = {"layer0": {"fwd": fwd, "bwd": dx}, "lfcc": {"fwd": fwd},
+            "trunk": {"fwd": 2 * fwd, "bwd": 2 * dx}}
+    res = {"batch": RB, "params": EXTRA_CUTS["APGD"], "seconds": wall,
+           "examples_per_sec": RB / wall, "launches": got, "expected": want}
+    check(bool(torch.isfinite(adv).all()), "fused APGD: non-finite waves")
+    check(all(got[k] == v for k, v in want.items()) and not launched(got, ("pool", "b2n")),
+          f"fused APGD launches {got}, expected {want}")
+    return res
+
+
+def phase21_qualitative(attacks, bench, models, set_seed) -> dict:
+    """The qualitative pipeline on the card, synthetic n=128 at batch 64:
+    ``save_adversarial_dataset`` with APGD (at the cut) over 2 batches; a
+    white-box ``generate_attacks(attack_name="APGD")`` with the
+    ``AttackAnalyser`` callback; the MCD of the pairs it wrote; the plot
+    where matplotlib imports."""
+    import tempfile
+
+    from adaa_tpu_torch.attacks.save import save_adversarial_dataset
+    from adaa_tpu_torch.data.loader import DataLoader
+    from adaa_tpu_torch.data.synthetic import SyntheticDataset
+    from adaa_tpu_torch.eval import generate_attacks
+    from adaa_tpu_torch.eval.postanalysis import AttackPostAnalyser
+    from adaa_tpu_torch.eval.qualitative import AttackAnalyser
+
+    ds = SyntheticDataset(n=128, subset="val", return_meta=True)
+    gen = set_seed(21, "cuda")
+    lcnn = models.init_model(models.get_model("lcnn", bench.CONFIG), gen, "cuda")
+    logits_fn = attacks.make_logits_fn(lcnn)
+    out = {"n": len(ds), "batch": RB}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "adv.npz")
+        rob, l2, ms = save_adversarial_dataset(
+            attacks.build_attack("APGD", logits_fn, EXTRA_CUTS["APGD"]), logits_fn,
+            DataLoader(ds, RB, shuffle=False, num_workers=3), save_path=npz, verbose=False,
+            return_verbose=True, save_pred=True, generator=gen)
+        saved = np.load(npz)
+        shapes = {k: list(saved[k].shape) for k in saved.files}
+        out["save"] = {"robust_accuracy": rob, "l2": l2, "elapsed_ms": ms, "npz": shapes}
+        check(shapes == {"adv_inputs": [128, 64_600], "labels": [128], "preds": [128]},
+              f"save_adversarial_dataset wrote {shapes}")
+        check(0.0 <= rob <= 100.0 and np.isfinite(l2) and l2 > 0,
+              f"save_adversarial_dataset: robust accuracy {rob}, L2 {l2}")
+        check(abs(rob - 100.0 * float((saved["preds"] == saved["labels"]).mean())) < 1e-6,
+              "the robust accuracy is not that of the saved predictions")
+
+        pairs = os.path.join(tmp, "qualitative")
+        analyser = AttackAnalyser(pairs)
+        np.random.seed(21)
+        t0 = time.perf_counter()
+        report = generate_attacks(lcnn, ds, "APGD", lcnn, RB, generator=gen,
+                                  on_attack_end_callback=analyser.analyse)
+        out["generate_attacks"] = {"report": report, "wall_s": time.perf_counter() - t0}
+        report_ok("phase 21 generate_attacks APGD", report)
+        n_pairs = len([f for f in os.listdir(pairs) if f.endswith("__orig.wav")])
+
+        post = AttackPostAnalyser(pairs)
+        t0 = time.perf_counter()
+        results = post.read_waves_and_calc_metrics()
+        out["mcd"] = {"pairs": n_pairs, "rows": len(results), "wall_s": time.perf_counter() - t0,
+                      "mcd_mean": float(results["mcd"].mean()) if len(results) else None,
+                      "mcd_metrics_csv": os.path.exists(os.path.join(pairs, "mcd_metrics.csv"))}
+        check(n_pairs >= 1 and len(results) == n_pairs, f"MCD rows {len(results)} for "
+                                                        f"{n_pairs} pairs")
+        check(bool(np.isfinite(results["mcd"]).all()) and float(results["mcd"].min()) >= 0.0,
+              "non-finite or negative MCD")
+        check(out["mcd"]["mcd_metrics_csv"], "no mcd_metrics.csv")
+        if importlib.util.find_spec("matplotlib") is not None:
+            post.read_waves_and_plot()
+            plots = len([f for f in os.listdir(pairs) if f.endswith("_plot.png")])
+            out["plots"] = plots
+            check(plots == n_pairs, f"{plots} plots for {n_pairs} pairs")
+        else:
+            out["plots"] = "not run: matplotlib is not installed on this machine"
+    return out
+
+
+def phase21_extra_attacks(attacks, bench, models, counters, set_seed, card) -> dict:
+    """Every name in EXTRA_ATTACKS on the bf16 LCNN, the fused APGD-CE and
+    the qualitative pipeline."""
+    out = {"phase": 21, "card": card, "reduced": EXTRA_REDUCED, "attacks": {}}
+    path = bench.setup(RB, seed=0, device="cuda", model="lcnn", config=bench.CONFIG)
+    for name in attacks.EXTRA_ATTACKS:
+        out["attacks"][name] = extra_checked(attacks, name, path, counters)
+    del path
+    torch.cuda.empty_cache()
+    out["fused_apgd"] = phase21_fused_apgd(attacks, bench, counters)
+    torch.cuda.empty_cache()
+    out["qualitative"] = phase21_qualitative(attacks, bench, models, set_seed)
+    emit(out)
+    return out
+
+
 def phase9_highest_gradient(attacks, models, set_seed) -> None:
     """The f32-highest input gradient with torch's default TF32 flags vs the
     same gradient with TF32 off globally; cuDNN deterministic in both, so
@@ -1408,7 +1671,7 @@ def main() -> None:
                          timeout=60).stdout.splitlines()
     emit({"phase": 0, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "installed": {m: importlib.util.find_spec(m) is not None
-                        for m in ("yaml", "sklearn", "pandas", "scipy")},
+                        for m in ("yaml", "sklearn", "pandas", "scipy", "matplotlib")},
           "host": {"g++": gxx[0] if gxx else None, "libmpg123": mp3.available(),
                    "libmp3lame": mp3.encoder_available()}})
 
@@ -1471,6 +1734,8 @@ def main() -> None:
     phase18_train_models(bench, card)
     phase19_clis(models, set_seed)
     phase20_corpus(bench, models, all_counters, card)
+    torch.cuda.empty_cache()
+    phase21_extra_attacks(attacks, bench, models, all_counters, set_seed, card)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
