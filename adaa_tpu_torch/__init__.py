@@ -1,9 +1,9 @@
 """adaa_tpu_torch — the PyTorch/CUDA port of adaa_tpu.
 
 Module paths mirror ``adaa_tpu`` (``ops``, ``models``, ``attacks``,
-``eval``, ``data``, ``training``, ``scripts``, ``utils``) so each module's JAX
-counterpart is easy to find. The JAX package is the reference this port
-is tested against; this package imports ``torch``, numpy and scipy
+``eval``, ``data``, ``training``, ``parallel``, ``scripts``, ``utils``) so
+each module's JAX counterpart is easy to find. The JAX package is the
+reference this port is tested against; this package imports ``torch``, numpy and scipy
 (``yaml`` only inside the CLIs' functions), never ``jax``, ``flax``,
 ``optax``, ``sklearn`` or ``adaa_tpu``.
 
@@ -32,4 +32,11 @@ warm-restart schedule, ``GDTrainer``, the adversarial trainers and their
 five strategies, whose self-attack runs the eval-mode kernels on the
 live weights), ``utils.checkpoints`` and the two training CLIs.
 ``bench.measure_torch_train`` times one adversarial-training step.
+
+The rest of the JAX package is here too: its numerics switches
+(``ADAA_FUSED_LCNN``, ``ADAA_FOLD_BN``, ... read where it reads them),
+``mel_spec``, the unwired detectors (``models/extra.py``), ``config``
+(``ExperimentConfig``), FLOP counting (``utils/flops.py``), ``.msgpack``
+writing, the batch scripts (``scripts/multi_runs``) and data parallelism
+over a ``torch.distributed`` group (``parallel``).
 """

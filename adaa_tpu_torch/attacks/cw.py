@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from adaa_tpu_torch.attacks import core
+from adaa_tpu_torch.utils.flops import loop_trip
 
 
 def cw(
@@ -62,35 +63,37 @@ def cw(
         b1_t = torch.tensor(b1, dtype=x.dtype, device=x.device)
         b2_t = torch.tensor(b2, dtype=x.dtype, device=x.device)
         for step in range(steps):
-            wg = w.requires_grad_(True)
-            with torch.enable_grad():
-                adv = tanh_space(wg)
-                flat = (adv - x).reshape(b, -1)
-                cur_l2 = (flat * flat).sum(dim=1)  # MSE(sum) per sample
-                logits2 = core.two_class_logits(logits_fn(adv))
-                cost = cur_l2.sum() + c * f_margin(logits2, y).sum()
-                (g,) = torch.autograd.grad(cost, wg)
-            adv, cur_l2, logits2, cost = adv.detach(), cur_l2.detach(), logits2.detach(), cost.detach()
+            with loop_trip():  # a trip of a loop that may stop early (utils/flops)
+                wg = w.requires_grad_(True)
+                with torch.enable_grad():
+                    adv = tanh_space(wg)
+                    flat = (adv - x).reshape(b, -1)
+                    cur_l2 = (flat * flat).sum(dim=1)  # MSE(sum) per sample
+                    logits2 = core.two_class_logits(logits_fn(adv))
+                    cost = cur_l2.sum() + c * f_margin(logits2, y).sum()
+                    (g,) = torch.autograd.grad(cost, wg)
+                adv, cur_l2 = adv.detach(), cur_l2.detach()
+                logits2, cost = logits2.detach(), cost.detach()
 
-            t = step + 1
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * (g * g)
-            mhat = m / (1 - b1_t ** t)
-            vhat = v / (1 - b2_t ** t)
-            w = w.detach() - lr * mhat / (torch.sqrt(vhat) + adam_eps)
+                t = step + 1
+                m = b1 * m + (1 - b1) * g
+                v = b2 * v + (1 - b2) * (g * g)
+                mhat = m / (1 - b1_t ** t)
+                vhat = v / (1 - b2_t ** t)
+                w = w.detach() - lr * mhat / (torch.sqrt(vhat) + adam_eps)
 
-            # the best adversarial so far, from the logits of before the update
-            correct = (logits2.argmax(dim=1) == y).to(x.dtype)
-            mask = (1.0 - correct) * (best_l2 > cur_l2).to(x.dtype)
-            best_l2 = mask * cur_l2 + (1.0 - mask) * best_l2
-            mask_b = mask.reshape(shape1)
-            best_adv = mask_b * adv + (1.0 - mask_b) * best_adv
+                # the best adversarial so far, from the logits of before the update
+                correct = (logits2.argmax(dim=1) == y).to(x.dtype)
+                mask = (1.0 - correct) * (best_l2 > cur_l2).to(x.dtype)
+                best_l2 = mask * cur_l2 + (1.0 - mask) * best_l2
+                mask_b = mask.reshape(shape1)
+                best_adv = mask_b * adv + (1.0 - mask_b) * best_adv
 
-            if step % checkpoint_every == 0:  # early stop on a cost that rose
-                cost_now = float(cost)
-                if cost_now > prev_cost:
-                    break
-                prev_cost = cost_now
+                if step % checkpoint_every == 0:  # early stop on a cost that rose
+                    cost_now = float(cost)
+                    if cost_now > prev_cost:
+                        break
+                    prev_cost = cost_now
         return best_adv
 
     return attack

@@ -30,6 +30,7 @@ import torch
 from adaa_tpu_torch.attacks import core
 from adaa_tpu_torch.attacks.fab_projections import (projection_l1, projection_l2_bisect_pair,
                                                     projection_linf_bisect_pair)
+from adaa_tpu_torch.parallel.mesh import global_draw
 
 _DEFAULT_EPS = {"Linf": 0.3, "L2": 1.0, "L1": 5.0}
 # Linf / L2 use the paired fan-search forms (both per-step projections
@@ -73,11 +74,12 @@ def fab(
         shape1 = (b,) + (1,) * (im2.dim() - 1)
         radius = torch.clamp(res2, max=eps).reshape(shape1)
         if norm == "Linf":
-            t = 2.0 * torch.rand(im2.shape, generator=generator, device=im2.device,
-                                 dtype=im2.dtype) - 1.0
+            t = 2.0 * global_draw(lambda s: torch.rand(s, generator=generator, device=im2.device,
+                                                       dtype=im2.dtype), im2.shape) - 1.0
             denom = t.reshape(b, -1).abs().amax(dim=1).reshape(shape1)
         else:
-            t = torch.randn(im2.shape, generator=generator, device=im2.device, dtype=im2.dtype)
+            t = global_draw(lambda s: torch.randn(s, generator=generator, device=im2.device,
+                                                  dtype=im2.dtype), im2.shape)
             denom = core.flat_norms(t, "l2" if norm == "L2" else "l1").reshape(shape1)
         return (im2 + radius * t / denom * 0.5).clamp(0.0, 1.0)
 

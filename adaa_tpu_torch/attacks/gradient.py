@@ -4,13 +4,16 @@ Port of ``adaa_tpu/attacks/gradient.py``. Inputs live in [0, 1]
 min-max space (see ``attacks.core``); the per-step structure (random
 start, signed or L2-normalised step, eps-ball projection, [0, 1] clamp)
 is the reference torchattacks loops'. Each step is one
-``torch.autograd.grad`` with respect to the input only.
+``torch.autograd.grad`` with respect to the input only. The random
+starts draw through ``parallel.mesh.global_draw``, so an attack over a
+sharded batch draws what it would draw over the global batch.
 """
 from __future__ import annotations
 
 import torch
 
 from adaa_tpu_torch.attacks import core
+from adaa_tpu_torch.parallel.mesh import global_draw
 
 
 def _make_cost_grad(logits_fn: core.LogitsFn, targeted: bool):
@@ -55,7 +58,9 @@ def pgd(
         x = x.detach()
         adv = x
         if random_start:
-            noise = torch.empty_like(x).uniform_(-eps, eps, generator=core.need_generator(generator))
+            gen = core.need_generator(generator)
+            noise = global_draw(lambda s: x.new_empty(s).uniform_(-eps, eps, generator=gen),
+                                x.shape)
             adv = (x + noise).clamp(0.0, 1.0)
         for _ in range(steps):
             g = grad_fn(adv, y)
@@ -87,9 +92,11 @@ def pgdl2(
         adv = x
         if random_start:
             gen = core.need_generator(generator)
-            delta = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+            delta = global_draw(lambda s: torch.randn(s, generator=gen, device=x.device,
+                                                      dtype=x.dtype), x.shape)
             n = core.flat_norms(delta, "l2").reshape(per_sample)
-            r = torch.rand(per_sample, generator=gen, device=x.device, dtype=x.dtype)
+            r = global_draw(lambda s: torch.rand(s, generator=gen, device=x.device,
+                                                 dtype=x.dtype), per_sample)
             adv = (x + delta * (r / n * eps)).clamp(0.0, 1.0)
         for _ in range(steps):
             g = grad_fn(adv, y)

@@ -12,6 +12,12 @@ transfer when it is another model on the same device.
 The attack's randomness draws from one ``torch.Generator`` (by default a
 fresh one seeded 0 on the victim's device), batch after batch.
 
+Under a process group whose size divides the batch (``parallel.mesh``),
+each rank attacks and predicts its rows of every batch and the results
+are all-gathered, so every rank holds the global batch's; an attack
+outside ``ATTACK_REGISTRY`` (its draws are not the global batch's) runs
+whole on every rank.
+
 Raw mode (``raw_sample_from_dataset``, the CLI's ``--raw_from_dataset``):
 the dataset gives untrimmed items, and the attacked batch goes back
 through the canonical preprocessing WITH DEFAULTS (silence trim, then
@@ -35,6 +41,7 @@ from adaa_tpu_torch import metrics
 from adaa_tpu_torch.data import base as dsp
 from adaa_tpu_torch.data.loader import DataLoader
 from adaa_tpu_torch.eval.evaluation import eval_mode, model_device
+from adaa_tpu_torch.parallel import mesh
 
 LOGGER = logging.getLogger(__name__)
 
@@ -58,16 +65,23 @@ def generate_attacks(
     else:
         builder, params = attacks_lib.EXTRA_ATTACKS[attack_name], {}
     has_attack = builder is not None and attack_model is not None
+    if mesh.data_parallel(batch_size):
+        for model in (victim_model, attack_model):
+            if model is not None:
+                mesh.replicate(model)
+        LOGGER.info("Data-parallel over %d processes", mesh.world()[0])
     if has_attack:
         attack_batch = attacks_lib.attack_in_wave_space(
             builder(attacks_lib.make_logits_fn(attack_model), **params))
+        if attack_name in attacks_lib.ATTACK_REGISTRY:
+            attack_batch = mesh.data_parallel_attack_fn(attack_batch)
         LOGGER.info("Attack using '%s' method (%s)", attack_name, params)
     else:
         LOGGER.info("No attack applied")
 
     def victim_predict(x: torch.Tensor) -> torch.Tensor:
         with eval_mode(victim_model), torch.no_grad():
-            return torch.sigmoid(victim_model(x).squeeze(1))
+            return mesh.map_sharded(lambda xs: torch.sigmoid(victim_model(xs).squeeze(1)), x)
 
     def reprocessed(batch_x: np.ndarray, batch_sr: np.ndarray) -> torch.Tensor:
         """The canonical preprocessing with its defaults (trim, re-pad) on

@@ -5,7 +5,8 @@ eval-mode forward, sigmoid, label ``(p + .5)`` as int, accuracy /
 precision / recall / F1 / AUC, EER on flipped labels, and the
 ``eval/*`` log line. Batches come from the loader as numpy and move to
 the model's device; the predictions stay there until one pull at the end.
-There is no data parallelism yet (ROADMAP.md, queue 1).
+Under a process group whose size divides the batch, each rank predicts
+its rows and the predictions are all-gathered (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from torch import nn
 
 from adaa_tpu_torch import metrics
 from adaa_tpu_torch.data.loader import DataLoader
+from adaa_tpu_torch.parallel import mesh
 
 LOGGER = logging.getLogger(__name__)
 
@@ -45,6 +47,9 @@ def evaluate_nn(model: nn.Module, dataset, batch_size: int = 128,
     LOGGER.info("Testing '%s' model on %d audio files.", model_name, len(dataset))
     loader = DataLoader(dataset, batch_size, shuffle=True, drop_last=True, num_workers=3)
     device = model_device(model)
+    if mesh.data_parallel(batch_size):
+        mesh.replicate(model)
+        LOGGER.info("Data-parallel over %d processes", mesh.world()[0])
     batches_number = len(dataset) // batch_size
     y_pred, y = [], []
     with eval_mode(model), torch.no_grad():
@@ -52,7 +57,7 @@ def evaluate_nn(model: nn.Module, dataset, batch_size: int = 128,
             if i % 10 == 0:
                 LOGGER.info("Batch [%d/%d]", i, batches_number)
             x = torch.from_numpy(batch[0]).to(device)
-            y_pred.append(torch.sigmoid(model(x).squeeze(1)))
+            y_pred.append(mesh.map_sharded(lambda xs: torch.sigmoid(model(xs).squeeze(1)), x))
             y.append(batch[2])
     if not y_pred:
         raise ValueError(

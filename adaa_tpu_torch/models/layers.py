@@ -10,7 +10,12 @@ RawNet3 and SpecRNet use:
   ``torch.autograd.Function``s with the
   equality-mask backward (the JAX default): every element equal to the
   max receives the whole cotangent. This is not torch's own max-pool
-  backward, which routes to a single argmax;
+  backward, which routes to a single argmax. ``ADAA_MFM_EQMASK=0``
+  (``max_feature_map``, ``mfm_pool_2d``) and ``ADAA_POOL_EQMASK=0``
+  (``max_pool_1d``, ``max_pool_2d``), read per call as the JAX package
+  reads them, restore the tie-splitting backward of ``torch.maximum`` /
+  ``amax``: a tied cotangent is split evenly, as ``jnp.maximum`` /
+  ``jnp.max`` split it;
 * ``BiLSTM``: a bidirectional LSTM as an explicit f32 recurrence in
   plain torch ops, gate order (i, f, g, o), parameters named as
   ``nn.LSTM`` names them. cuDNN's ``nn.LSTM`` refuses its backward in
@@ -21,15 +26,23 @@ RawNet3 and SpecRNet use:
   of explicit f32 recurrence, gate order (r, z, n);
 * ``batch_norm``: flax's ``nn.BatchNorm`` on a channels-last tensor, in
   train and in eval, its running statistics held in an ``nn.BatchNorm*d``
-  (whose keys the reference's ``state_dict`` has).
+  (whose keys the reference's ``state_dict`` has); in train over a batch
+  sharded across processes (``parallel.mesh.sharded``), its statistics
+  are the global batch's, as flax's under GSPMD;
+* ``dropout``: ``F.dropout``, whose keep-mask over a sharded batch is
+  the global batch's draw, sliced.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from adaa_tpu_torch.parallel import mesh
 
 # ---------------------------------------------------------------------------
 # Initializers (torch defaults), in place, from an explicit generator
@@ -79,11 +92,20 @@ class _MaxFeatureMap(torch.autograd.Function):
         return torch.cat([da, db], dim=-1).to(x.dtype)
 
 
+def switch_on(env: str) -> bool:
+    """One of the JAX package's numerics switches (``ADAA_MFM_EQMASK``,
+    ``ADAA_FOLD_BN``, ...): on unless the variable is ``"0"``, read per call."""
+    return os.environ.get(env) != "0"
+
+
 def max_feature_map(x: torch.Tensor) -> torch.Tensor:
     """MFM maxout over channel halves of the last axis: max(x[..., :C/2], x[..., C/2:])."""
     if x.shape[-1] % 2:
         raise ValueError("MFM needs an even channel count")
-    return _MaxFeatureMap.apply(x)
+    if switch_on("ADAA_MFM_EQMASK"):
+        return _MaxFeatureMap.apply(x)
+    a, b = x.chunk(2, dim=-1)
+    return torch.maximum(a, b)
 
 
 def _windows(x: torch.Tensor, window: int, split_channels: bool) -> torch.Tensor:
@@ -163,19 +185,27 @@ class _MaxPool1d(torch.autograd.Function):
 def max_pool_1d(x: torch.Tensor, window: int) -> torch.Tensor:
     """torch MaxPool1d(window) in floor mode on (B, T, C), with the
     equality-mask backward; the dropped tail T mod window gets zeros."""
-    return _MaxPool1d.apply(x, window)
+    if switch_on("ADAA_POOL_EQMASK"):
+        return _MaxPool1d.apply(x, window)
+    b, t, c = x.shape
+    t2 = t // window
+    return x[:, : t2 * window].reshape(b, t2, window, c).amax(dim=2)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """torch MaxPool2d(window, window) in floor mode on NHWC input."""
-    return _MaxPool2d.apply(x, window)
+    if switch_on("ADAA_POOL_EQMASK"):
+        return _MaxPool2d.apply(x, window)
+    return _windows(x, window, False).amax(dim=(2, 4))
 
 
 def mfm_pool_2d(x: torch.Tensor) -> torch.Tensor:
     """max_pool_2d(max_feature_map(x)) as one max over the 8 candidates."""
     if x.shape[-1] % 2:
         raise ValueError("MFM needs an even channel count")
-    return _MfmPool2d.apply(x)
+    if switch_on("ADAA_MFM_EQMASK"):
+        return _MfmPool2d.apply(x)
+    return _windows(x, 2, True).amax(dim=(2, 4, 5))
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +232,23 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     torch's own ``BatchNorm`` in train mode updates the running variance
     with the unbiased batch variance, which is not what the JAX models
     compute.
+
+    Inside ``mesh.sharded()`` the batch's statistics are the global
+    batch's: the per-channel sums of x and x^2 and the count are summed
+    over ranks (with their gradients), as flax reduces over the whole
+    sharded batch.
     """
     xf = x.float()
     if bn.training:
         axes = tuple(range(x.dim() - 1))
-        mean = xf.mean(axes)
-        var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+        if mesh.shard_info() is None:
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+        else:
+            count = mesh.shard_info()[0] * math.prod(x.shape[:-1])
+            sums = mesh.all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
+            mean = sums[0] / count
+            var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
@@ -220,6 +261,17 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     if bn.bias is not None:
         y = y + bn.bias
     return y.to(dtype or torch.float32)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """``F.dropout``; inside ``mesh.sharded()`` the keep-mask is the global
+    batch's draw (``F.dropout`` of ones of the global shape), sliced to
+    this rank's rows, as JAX draws one mask over the sharded batch."""
+    if not training or mesh.shard_info() is None:
+        return F.dropout(x, p=p, training=training)
+    scale = mesh.global_draw(lambda shape: F.dropout(x.new_ones(shape), p=p, training=True),
+                             tuple(x.shape))
+    return x * scale
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +329,25 @@ class BiLSTM(nn.Module):
         return out.transpose(0, 1)
 
 
+def gru_recurrence(gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """The GRU recurrence of ``n`` directions at once from zero state:
+    gates (n, T, B, 3H) = x W_ih + b_ih in processing order, w_hh (n, H,
+    3H), b_hh (n, 1, 3H) -> hidden states (T, n, B, H), with n = tanh(x_n
+    + r * (W_hn h + b_hn)) as torch has it; each step one batched product."""
+    n, t, b, _ = gates.shape
+    hs = gates.new_zeros(n, b, w_hh.shape[1])
+    outs = []
+    for s in range(t):
+        gh = torch.bmm(hs, w_hh) + b_hh
+        xr, xz, xn = gates[:, s].chunk(3, dim=-1)
+        hr, hz, hn = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        hs = (1.0 - z) * torch.tanh(xn + r * hn) + z * hs
+        outs.append(hs)
+    return torch.stack(outs)
+
+
 class BiGRU(nn.Module):
     """Multi-layer bidirectional GRU, outputs concatenated: (B, T, D) -> (B, T, 2H).
 
@@ -318,19 +389,7 @@ class BiGRU(nn.Module):
         gates = torch.stack([gx[0], gx[1].flip(0)])  # (2, T, B, 3H), backward reversed
         w_hh = torch.stack([w.T for w in both("weight_hh")])  # (2, H, 3H)
         b_hh = torch.stack(both("bias_hh"))[:, None]  # (2, 1, 3H)
-
-        hs = x.new_zeros(2, b, h)
-        outs = []
-        for s in range(t):
-            gh = torch.bmm(hs, w_hh) + b_hh
-            xr, xz, xn = gates[:, s].chunk(3, dim=-1)
-            hr, hz, hn = gh.chunk(3, dim=-1)
-            r = torch.sigmoid(xr + hr)
-            z = torch.sigmoid(xz + hz)
-            n = torch.tanh(xn + r * hn)
-            hs = (1.0 - z) * n + z * hs
-            outs.append(hs)
-        ys = torch.stack(outs)  # (T, 2, B, H)
+        ys = gru_recurrence(gates, w_hh, b_hh)  # (T, 2, B, H)
         return torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1).transpose(0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,14 @@ cuDNN's native layout. Two paths:
 backward (TF32 off in both), as the JAX package's
 ``Precision.HIGHEST`` does.
 
+The JAX package's numerics switches are read per call where it reads
+them, each on unless its variable is ``"0"``: ``ADAA_BF16_FRONTEND=0``
+keeps the f32 frontend on the bf16 trunk; ``ADAA_FUSED_LCNN=0`` runs the
+first block unfused (no layer-0 kernel); ``ADAA_FOLD_BN=0`` runs the
+bf16 eval trunk unfolded, conv -> MFM (-> pool) -> BN on the running
+statistics in bf16, and with it no fused trunk (JAX decides the fused
+trunk inside its fold). The eqmask switches act in ``layers``.
+
 Module names give the reference's ``state_dict`` keys
 (``m_transform.<i>``, ``m_before_pooling.<j>.l_blstm``,
 ``m_output_act``), so a reference ``.pth`` loads with
@@ -90,13 +98,14 @@ class _IeeeConv2d(torch.autograd.Function):
 def _conv_nhwc(h: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                exact: bool = False) -> torch.Tensor:
     """'SAME' conv of a channels-last (B, H, W, C) tensor; ``exact`` keeps
-    TF32 off in the forward and the backward."""
+    TF32 off in the forward and the backward. Otherwise the bias is added
+    after the conv's store, as flax's ``nn.Conv`` adds it (in bf16, two
+    roundings; in f32 the same one)."""
     x = h.permute(0, 3, 1, 2)
     if exact:
-        y = _IeeeConv2d.apply(x, weight, bias)
-    else:
-        y = F.conv2d(x, weight, bias, padding=weight.shape[-1] // 2)
-    return y.permute(0, 2, 3, 1)
+        return _IeeeConv2d.apply(x, weight, bias).permute(0, 2, 3, 1)
+    y = F.conv2d(x, weight, None, padding=weight.shape[-1] // 2).permute(0, 2, 3, 1)
+    return y if bias is None else y + bias
 
 
 class BLSTMLayer(nn.Module):
@@ -172,8 +181,9 @@ class LCNN(nn.Module):
     def _frontend(self, x: torch.Tensor) -> torch.Tensor:
         # bf16 frontend products only with the bf16 trunk (and only on the
         # accelerator, decided inside the frontend per call)
-        fe_compute = ("bf16" if self.compute_dtype == torch.bfloat16
-                      and self.precision != "highest" else "f32")
+        bf16 = (self.compute_dtype == torch.bfloat16 and self.precision != "highest"
+                and layers.switch_on("ADAA_BF16_FRONTEND"))
+        fe_compute = "bf16" if bf16 else "f32"
         feat = frontends.get_frontend(list(self.frontend_algorithm), compute=fe_compute,
                                       fused=self.fused_frontend, reference=self.plain_ops)(x)
         return feat[:, None] if feat.dim() < 4 else feat  # (B, C, n_coeff, T)
@@ -212,7 +222,7 @@ class LCNN(nn.Module):
         exact = self.precision == "highest"
 
         conv0 = self.m_transform["0"]
-        if fast and tuple(h.shape[1:]) == LAYER0_SHAPE:
+        if fast and tuple(h.shape[1:]) == LAYER0_SHAPE and layers.switch_on("ADAA_FUSED_LCNN"):
             fn = (layer0.fused_conv0_mfm_pool_reference if self.plain_ops
                   else layer0.fused_conv0_mfm_pool)
             h = fn(h[..., 0], conv0.weight.detach(), conv0.bias.detach())
@@ -221,8 +231,9 @@ class LCNN(nn.Module):
             h = layers.max_pool_2d(
                 layers.max_feature_map(_conv_nhwc(h, w0, conv0.bias.to(h.dtype), exact)))
 
+        fold = fast and layers.switch_on("ADAA_FOLD_BN")
         blocks = TRUNK
-        if fast and tuple(h.shape[1:]) == SEGMENT_A_SHAPE and self._fused_trunk_on():
+        if fold and tuple(h.shape[1:]) == SEGMENT_A_SHAPE and self._fused_trunk_on():
             segment = trunk.fused_segment_reference if self.plain_ops else trunk.fused_segment
             # conv3 (+bn5) / conv6 (+bn9) + pool, conv10 (+bn12) / conv13 + pool
             for (k1, bn1, _), (k3, bn3, _), spec in ((TRUNK[0], TRUNK[1], trunk.SEGMENT_A),
@@ -232,10 +243,9 @@ class LCNN(nn.Module):
                 h = segment(h, wa, ba, wb, bb, spec)
             blocks = TRUNK[4:]
         for conv_key, bn_key, pooled in blocks:
-            if fast:
+            if fold:
                 kernel, bias = self._folded(conv_key, bn_key)
-                # bias added after the conv's bf16 store, as the JAX trunk does
-                y = _conv_nhwc(h, kernel.to(dtype), None) + bias.to(dtype)
+                y = _conv_nhwc(h, kernel.to(dtype), bias.to(dtype))
                 h = layers.mfm_pool_2d(y) if pooled else layers.max_feature_map(y)
                 continue
             conv = self.m_transform[conv_key]
@@ -245,7 +255,7 @@ class LCNN(nn.Module):
                 h = layers.max_pool_2d(h)
             if bn_key is not None:
                 h = self._bn(bn_key, h)
-        h = F.dropout(h, p=0.7, training=self.training)
+        h = layers.dropout(h, 0.7, self.training)
 
         # (B, T', W', C) -> (B, T', C, W') -> (B, T', C * W'), which is the
         # reference's permute(0, 2, 1, 3) + view from NCHW

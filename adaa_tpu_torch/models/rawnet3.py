@@ -31,6 +31,15 @@ environment variable per call):
 
 ``plain_ops = True`` sends both ops to their plain versions on any
 device. The JAX model's ``ADAA_RAWNET_SCAN`` variant is not ported.
+
+Two of the JAX package's numerics switches act here, read per call and
+on unless ``"0"``: ``ADAA_BF16_FRONTEND=0`` keeps the sinc products and
+the encoder tail in f32 on the bf16 model; ``ADAA_SINC_VJP=0`` runs the
+sinc conv as a plain strided f32 conv (frames x filters) that autograd
+differentiates, filter gradient included, in place of
+``ops/sinc_conv.py``'s closed forms (f32 on the bf16 model too, as in
+JAX).
+
 In ``train()`` the BNs normalise with the batch's statistics and update
 their running ones as flax does (``layers.batch_norm``), the block
 bodies run the plain path (the b2n kernel is eval-only, as in JAX), and
@@ -75,7 +84,7 @@ def _sinc_init_hz(cutoff: int, sample_rate: float, min_low_hz: float, min_band_h
 class ParamSincFB(nn.Module):
     """Learnable parametric sinc filterbank (asteroid-compatible keys):
     the first half cosine-phase band-pass filters, the second half
-    sine-phase."""
+    sine-phase. Its forward is the strided conv of raw waves with them."""
 
     def __init__(self, n_filters: int = 256, kernel_size: int = 251, stride: int = 10,
                  sample_rate: float = 8000.0, min_low_hz: float = 50.0,
@@ -110,6 +119,17 @@ class ParamSincFB(nn.Module):
         sin_left = ((torch.cos(ftl) - torch.cos(fth)) / (self.n_ / 2.0)) * self.window_
         sin_filt = torch.cat([sin_left, torch.zeros_like(band)[:, None], -sin_left.flip(1)], dim=1)
         return torch.cat([cos_filt / (2.0 * band[:, None]), sin_filt / (2.0 * band[:, None])], 0)
+
+    def forward(self, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+        """(B, L) f32 -> (B, T, n_filters) f32: ``ops/sinc_conv.py`` (bf16
+        products with ``bf16``; the filters' closed-form gradient in
+        train), or with ``ADAA_SINC_VJP=0`` the frames x filters product in
+        f32, differentiated by autograd."""
+        filters = self.filters() if self.training else self.filters().detach()
+        if not layers.switch_on("ADAA_SINC_VJP"):  # f32 products, no TF32
+            return torch.matmul(x.unfold(1, self.kernel_size, self.stride), filters.T)
+        return sinc_conv(x, filters, self.stride, need_dw=self.training,
+                         compute="bf16" if bf16 else "f32")
 
 
 class Encoder(nn.Module):
@@ -319,11 +339,9 @@ class RawNet3(nn.Module):
         mean = h.mean(dim=1, keepdim=True)
         var = h.var(dim=1, keepdim=True, unbiased=False)
         h = (h - mean) / torch.sqrt(var + norm.eps) * norm.weight + norm.bias
-        fb = self.conv1.filterbank
-        filters = fb.filters() if self.training else fb.filters().detach()
-        compute = "bf16" if self.compute_dtype == torch.bfloat16 else "f32"
-        h = sinc_conv(h, filters, fb.stride, need_dw=self.training, compute=compute)
-        if self.compute_dtype == torch.bfloat16 and h.device.type != "cpu":
+        bf16 = self.compute_dtype == torch.bfloat16 and layers.switch_on("ADAA_BF16_FRONTEND")
+        h = self.conv1.filterbank(h, bf16)
+        if bf16 and h.device.type != "cpu":
             h = h.to(torch.bfloat16)  # the bf16 encoder tail, on the card only
         h = torch.log(h.abs() + 1e-6)
         h = h - h.mean(dim=1, keepdim=True, dtype=torch.float32).to(h.dtype)

@@ -17,6 +17,21 @@ loads with ``load_state_dict``.
 * RawNet3's ``afms.alpha`` (C,) -> (C, 1); the sinc filterbank's
   constant ``window_`` / ``n_`` buffers and the unused ``bn6``, which
   the JAX model does not hold, come from a fresh port model.
+
+``lcnn_flax_from_state_dict``, ``rawnet3_flax_from_state_dict`` and
+``specrnet_flax_from_state_dict`` (``flax_from_state_dict`` by name) go
+the other way: the port's copies of ``torch_import``'s converters, which
+build the JAX model's variable tree (numpy f32) from a ``state_dict``;
+``utils/checkpoints.save_checkpoint_msgpack`` writes it.
+
+``extra_state_dict_from_flax`` maps the variable tree of one of the JAX
+package's unwired detectors (``adaa_tpu/models/extra.py``) onto the
+port's ``models/extra.py``. No reference ``.pth`` layout exists for them
+and the JAX package has no converter, so the port's modules carry the
+JAX module names and the keys are those names with torch's parameter
+names and layouts: ``kernel`` -> ``weight`` (transposed as above),
+``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+``running_var``, GRU weights transposed.
 """
 from __future__ import annotations
 
@@ -144,6 +159,145 @@ def state_dict_from_flax(model_name: str, variables: Dict[str, Any]) -> Dict[str
     if model_name not in FROM_FLAX:
         raise ValueError(f"no flax weight bridge for model '{model_name}'")
     return FROM_FLAX[model_name](variables)
+
+
+def _kernel_to_torch(a: np.ndarray) -> np.ndarray:
+    """A flax kernel in torch's layout: (K..., I, O) -> (O, I, K...); (I, O) -> (O, I)."""
+    return a.T if a.ndim == 2 else a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def extra_state_dict_from_flax(model_name: str,
+                               variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of an unwired detector's JAX variable tree
+    (``model_name`` as ``extra.get_extra_model`` takes it; module doc)."""
+    if model_name not in ("rawnet2", "mesonet", "meso4", "meso_inception4", "xception"):
+        raise ValueError(f"Extra model '{model_name}' not supported")
+    params = {"kernel": ("weight", _kernel_to_torch), "scale": ("weight", None),
+              "bias": ("bias", None), "weight_ih": ("weight_ih", np.transpose),
+              "weight_hh": ("weight_hh", np.transpose), "bias_ih": ("bias_ih", None),
+              "bias_hh": ("bias_hh", None)}
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _flat(variables["params"]):
+        name, fn = params[path[-1]]
+        sd[".".join(path[:-1] + (name,))] = _t(fn(a) if fn else a)
+    for path, a in _flat(variables.get("batch_stats", {})):
+        key = ".".join(path[:-1])
+        sd[f"{key}.running_{path[-1]}"] = _t(a)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# state_dict -> the JAX model's variable tree
+# ---------------------------------------------------------------------------
+
+def _n(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _f_conv(sd, key: str) -> Dict[str, np.ndarray]:
+    p = {"kernel": _n(sd[f"{key}.weight"]).transpose(*range(2, sd[f"{key}.weight"].dim()), 1, 0)}
+    if f"{key}.bias" in sd:
+        p["bias"] = _n(sd[f"{key}.bias"])
+    return p
+
+
+def _f_linear(sd, key: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _n(sd[f"{key}.weight"]).T, "bias": _n(sd[f"{key}.bias"])}
+
+
+def _f_bn(sd, key: str, affine: bool = True):
+    """(params, batch_stats) of one BatchNorm."""
+    params = {"scale": _n(sd[f"{key}.weight"]), "bias": _n(sd[f"{key}.bias"])} if affine else {}
+    return params, {"mean": _n(sd[f"{key}.running_mean"]), "var": _n(sd[f"{key}.running_var"])}
+
+
+def _f_rnn(sd, prefix: str, sfx: str) -> Dict[str, np.ndarray]:
+    return {"weight_ih": _n(sd[f"{prefix}.weight_ih_{sfx}"]).T,
+            "weight_hh": _n(sd[f"{prefix}.weight_hh_{sfx}"]).T,
+            "bias_ih": _n(sd[f"{prefix}.bias_ih_{sfx}"]),
+            "bias_hh": _n(sd[f"{prefix}.bias_hh_{sfx}"])}
+
+
+def lcnn_flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    params = {f"conv{i}": _f_conv(sd, f"m_transform.{i}") for i in CONVS}
+    stats = {f"bn{i}": _f_bn(sd, f"m_transform.{i}", affine=False)[1] for i in BNS}
+    for j in (0, 1):
+        prefix = f"m_before_pooling.{j}.l_blstm"
+        params[f"blstm{j}"] = {"fwd": _f_rnn(sd, prefix, "l0"),
+                               "bwd": _f_rnn(sd, prefix, "l0_reverse")}
+    params["output"] = _f_linear(sd, "m_output_act")
+    return {"params": params, "batch_stats": stats}
+
+
+def specrnet_flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    params, stats = {}, {}
+    params["first_bn"], stats["first_bn"] = _f_bn(sd, "first_bn")
+    for blk, first in (("block0", True), ("block2", False), ("block4", False)):
+        key, bp, bs = f"{blk}.0", {}, {}
+        if not first:
+            bp["bn1"], bs["bn1"] = _f_bn(sd, f"{key}.bn1")
+        bp["conv1"] = _f_conv(sd, f"{key}.conv1")
+        bp["bn2"], bs["bn2"] = _f_bn(sd, f"{key}.bn2")
+        bp["conv2"] = _f_conv(sd, f"{key}.conv2")
+        if f"{key}.conv_downsample.weight" in sd:
+            bp["conv_downsample"] = _f_conv(sd, f"{key}.conv_downsample")
+        params[blk], stats[blk] = bp, bs
+    for i in (0, 2, 4):
+        params[f"fc_attention{i}"] = _f_linear(sd, f"fc_attention{i}.0")
+    params["bn_before_gru"], stats["bn_before_gru"] = _f_bn(sd, "bn_before_gru")
+    params["gru"] = {f"l{layer}_{d}": _f_rnn(sd, "gru", f"l{layer}{sfx}")
+                     for layer in (0, 1) for d, sfx in (("fwd", ""), ("bwd", "_reverse"))}
+    params["fc1_gru"] = _f_linear(sd, "fc1_gru")
+    params["fc2_gru"] = _f_linear(sd, "fc2_gru")
+    return {"params": params, "batch_stats": stats}
+
+
+def rawnet3_flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    params = {"instancenorm_weight": _n(sd["preprocess.1.weight"]),
+              "instancenorm_bias": _n(sd["preprocess.1.bias"]),
+              "conv1": {"low_hz_": _n(sd["conv1.filterbank.low_hz_"]),
+                        "band_hz_": _n(sd["conv1.filterbank.band_hz_"])}}
+    stats = {}
+    for name in ("layer1", "layer2", "layer3"):
+        lp, ls = {"conv1": _f_conv(sd, f"{name}.conv1")}, {}
+        lp["bn1"], ls["bn1"] = _f_bn(sd, f"{name}.bn1")
+        for i in range(7):
+            lp[f"convs_{i}"] = _f_conv(sd, f"{name}.convs.{i}")
+            lp[f"bns_{i}"], ls[f"bns_{i}"] = _f_bn(sd, f"{name}.bns.{i}")
+        lp["conv3"] = _f_conv(sd, f"{name}.conv3")
+        lp["bn3"], ls["bn3"] = _f_bn(sd, f"{name}.bn3")
+        if f"{name}.residual.0.weight" in sd:
+            lp["residual"] = _f_conv(sd, f"{name}.residual.0")
+        lp["afms"] = {"alpha": _n(sd[f"{name}.afms.alpha"]).reshape(-1),
+                      "fc": _f_linear(sd, f"{name}.afms.fc")}
+        params[name], stats[name] = lp, ls
+    params["layer4"] = _f_conv(sd, "layer4")
+    params["attention_0"] = _f_conv(sd, "attention.0")
+    params["attention_2"], stats["attention_2"] = _f_bn(sd, "attention.2")
+    params["attention_3"] = _f_conv(sd, "attention.3")
+    params["bn5"], stats["bn5"] = _f_bn(sd, "bn5")
+    params["fc6"] = _f_linear(sd, "fc6")  # bn6: not in the JAX model
+    return {"params": params, "batch_stats": stats}
+
+
+TO_FLAX = {"lcnn": lcnn_flax_from_state_dict, "rawnet3": rawnet3_flax_from_state_dict,
+           "specrnet": specrnet_flax_from_state_dict}
+
+
+def flax_from_state_dict(model_name: str, sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The JAX model ``model_name``'s variable tree of a port ``state_dict``."""
+    if model_name not in TO_FLAX:
+        raise ValueError(f"no flax weight bridge for model '{model_name}'")
+    return TO_FLAX[model_name](sd)
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:

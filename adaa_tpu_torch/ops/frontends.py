@@ -1,16 +1,22 @@
-"""Differentiable cepstral frontends (LFCC / MFCC).
+"""Differentiable audio frontends (LFCC / MFCC / mel_spec).
 
-Port of ``adaa_tpu/ops/frontends.py`` (the ``_lfcc_xla`` path, and
-``mfcc`` which shares every piece): STFT power spectrum, a 257 -> 128
-triangular filterbank, 10 * log10, and an ortho DCT 128 -> n_coeff.
-Both map (B, 64600) -> (B, n_coeff, T) with T = 404 frames and
-differentiate with respect to the waveform (the attacks backpropagate
-through the frontend).
+Port of ``adaa_tpu/ops/frontends.py``. The cepstral frontends (the
+``_lfcc_xla`` path, and ``mfcc`` which shares every piece): STFT power
+spectrum, a 257 -> 128 triangular filterbank, 10 * log10, and an ortho
+DCT 128 -> n_coeff. Both map (B, 64600) -> (B, n_coeff, T) with T = 404
+frames and differentiate with respect to the waveform (the attacks
+backpropagate through the frontend).
 
 ``lfcc`` takes the fused kernel (``ops/lfcc_fused.py``, the counterpart
 of ``adaa_tpu/ops/pallas_lfcc.py``) when it is switched on, as the JAX
 ``lfcc`` does under ``ADAA_PALLAS_FRONTEND=1``. ``mfcc`` stays unfused,
-as in the JAX package. ``mel_spec`` is not ported yet; see ROADMAP.md.
+as in the JAX package.
+
+``mel_spec`` (the reference's ``prepare_mel_scale_vector``): the STFT
+with a rectangular window of ``win_length`` (``torch.stft`` called
+without a window), the real and imaginary parts each projected on 80
+htk mel filters (``norm=None``), then (abs, angle) stacked as
+(..., 2, n_mels, T), always in f32.
 """
 from __future__ import annotations
 
@@ -84,6 +90,26 @@ def mfcc(x: torch.Tensor, n_mfcc: int = 80, n_mels: int = 128,
     return _dct_einsum(banked_db, dct, compute)
 
 
+def prepare_stft_features(x: torch.Tensor, n_mels: int = 80):
+    """Mel-projected complex STFT -> (abs, angle), each (..., n_mels, T)."""
+    real, imag = stft_ops.stft(x, n_fft=N_FFT, hop_length=HOP_LENGTH, win_length=WIN_LENGTH,
+                               window="ones")
+    filt = device_constant(
+        fb.melscale_fbanks,
+        (N_FFT // 2 + 1, 0.0, SAMPLING_RATE / 2, n_mels, SAMPLING_RATE, None, "htk"),
+        real.device,
+    )
+    real_mel = torch.einsum("...ft,fm->...mt", real, filt)
+    imag_mel = torch.einsum("...ft,fm->...mt", imag, filt)
+    return torch.sqrt(real_mel * real_mel + imag_mel * imag_mel), torch.atan2(imag_mel, real_mel)
+
+
+def mel_spec(x: torch.Tensor) -> torch.Tensor:
+    """(..., L) -> (..., 2, n_mels, T): stacked (abs, angle) channels."""
+    abs_mel, angle_mel = prepare_stft_features(x)
+    return torch.stack([abs_mel, angle_mel], dim=-3)
+
+
 def _bf16_inputs(*ts: torch.Tensor):
     """Round to bf16 and back: an f32 product of the results is exactly a
     bf16 x bf16 product with f32 accumulation and an f32 result."""
@@ -111,13 +137,12 @@ def get_frontend(
     reference: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Dispatch mirroring ``adaa_tpu.ops.frontends.get_frontend``;
-    ``fused`` and ``reference`` reach ``lfcc`` only."""
+    ``fused`` and ``reference`` reach ``lfcc`` only, and ``mel_spec`` is
+    always f32."""
     if "mfcc" in frontends:
         return functools.partial(mfcc, compute=compute)
     if "lfcc" in frontends:
         return functools.partial(lfcc, compute=compute, fused=fused, reference=reference)
     if "mel_spec" in frontends:
-        raise NotImplementedError(
-            "mel_spec is not ported to adaa_tpu_torch yet (ROADMAP.md, queue 1)"
-        )
+        return mel_spec
     raise ValueError(f"{frontends} frontend is not supported!")

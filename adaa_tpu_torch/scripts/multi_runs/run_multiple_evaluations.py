@@ -1,0 +1,41 @@
+#!/usr/bin/env python
+"""Batch clean evaluation: the port's twin of
+``scripts/multi_runs/run_multiple_evaluations.py`` (the reference's
+multi_runs_scripts/run_multiple_evaluations.py:23-31). It reads the same
+batch config (``paths:`` of experiment configs) and runs the port's
+``evaluate_models`` on each, in this process:
+
+    python -m adaa_tpu_torch.scripts.multi_runs.run_multiple_evaluations \\
+        --config batch_config.yaml --asv_path synthetic:192 [--cpu]
+"""
+import argparse
+from typing import List, Optional
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", help="Path to batch config.", default="batch_config.yaml")
+    parser.add_argument("--asv_path", default=None)
+    parser.add_argument("--wavefake_path", default=None)
+    parser.add_argument("--celeb_path", default=None)
+    parser.add_argument("--amount", "-a", type=int, default=None)
+    parser.add_argument("--cpu", "-c", help="Run each evaluation on the CPU", action="store_true")
+    return parser.parse_args(argv)
+
+
+def main(args: argparse.Namespace) -> list:
+    """Run the CLI on each entry; return what each run returned, in order."""
+    from adaa_tpu_torch.config import load_yaml
+    from adaa_tpu_torch.scripts import evaluate_models
+    from adaa_tpu_torch.scripts.multi_runs import passthrough, run_all
+
+    configs_to_run = load_yaml(args.config)["paths"]
+    print("Running following configs: ", configs_to_run)
+    return run_all(evaluate_models, configs_to_run, lambda config: [
+        "--config", config,
+        *passthrough(("--amount", args.amount or None), ("--asv_path", args.asv_path),
+                     ("--wavefake_path", args.wavefake_path), ("--celeb_path", args.celeb_path))],
+        args.cpu)
+
+if __name__ == "__main__":
+    main(parse_args())

@@ -40,6 +40,7 @@ from torch import nn
 from adaa_tpu_torch import attacks
 from adaa_tpu_torch.data.loader import DataLoader
 from adaa_tpu_torch.eval.evaluation import model_device
+from adaa_tpu_torch.parallel import mesh
 from adaa_tpu_torch.training import train_state as ts
 from adaa_tpu_torch.training.gd_trainer import (GDTrainer, cpu_state_dict, make_eval_step,
                                                 to_device, train_step)
@@ -59,11 +60,16 @@ def make_adv_fn(attack_name: str, attack_model: nn.Module,
                 generator: Optional[torch.Generator] = None) -> Optional[AdvFn]:
     """The registry attack ``attack_name`` on ``attack_model``, in wave space;
     None for NO_ATTACK (no attack function). ``generator`` draws the
-    random starts."""
+    random starts. Under a process group that divides the batch, each rank
+    attacks its rows (``mesh.data_parallel_attack_fn``); an attack outside
+    ``ATTACK_REGISTRY``, whose draws are not the global batch's, runs whole
+    on every rank."""
     attack01 = attacks.build_attack(attack_name, attacks.make_logits_fn(attack_model))
     if attack01 is None:
         return None
     in_waves = attacks.attack_in_wave_space(attack01)
+    if attack_name in attacks.ATTACK_REGISTRY:
+        in_waves = mesh.data_parallel_attack_fn(in_waves)
 
     def adv_fn(batch_x: torch.Tensor, batch_y: torch.Tensor) -> torch.Tensor:
         return in_waves(batch_x, batch_y, generator).detach()
@@ -115,6 +121,9 @@ class AdversarialGDTrainer(GDTrainer):
         if test_dataset is None:
             raise ValueError("pass an explicit test split")
         device = model_device(model)
+        mesh.replicate(model)
+        if attack_model is not None:
+            mesh.replicate(attack_model)
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
         train_loader, test_loader = self._loaders(dataset, test_dataset)

@@ -9,8 +9,14 @@ A train step is eager PyTorch: forward in ``train()`` (batch-statistics
 BatchNorm, dropout, the sinc filters' gradient; every fused kernel is
 eval-only, as in JAX), BCE, backward, Adam. The epoch loops keep their
 losses and counts on the device and pull them at log points only: one
-pull per log line, one per test epoch. The trainers run on the model's
-device, one card; data parallelism is not ported (ROADMAP.md, queue 1).
+pull per log line, one per test epoch.
+
+With a process group whose size divides the batch (``parallel.mesh``),
+the model is broadcast from rank 0, each rank steps on its rows of every
+batch (``train_step``), the gradients are averaged over ranks and the
+logged sums are the global batch's, as the JAX trainer's one program
+over a sharded batch computes them; the test passes run whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from torch import nn
 
 from adaa_tpu_torch.data.loader import DataLoader
 from adaa_tpu_torch.eval.evaluation import eval_mode, model_device
+from adaa_tpu_torch.parallel import mesh
 from adaa_tpu_torch.training import train_state as ts
 
 LOGGER = logging.getLogger(__name__)
@@ -49,13 +56,27 @@ def to_device(batch, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def train_step(state: ts.TrainState, batch_x: torch.Tensor, batch_y: torch.Tensor,
                acc: torch.Tensor) -> torch.Tensor:
+    """One BCE/Adam step on the global batch (``_step``): on this rank's
+    rows, sharded, when a process group's size divides the batch (module
+    doc), else on all of it."""
+    if not mesh.data_parallel(batch_x.shape[0]):
+        return _step(state, batch_x, batch_y, acc)
+    with mesh.sharded():
+        return _step(state, mesh.shard_batch(batch_x), mesh.shard_batch(batch_y), acc)
+
+
+def _step(state: ts.TrainState, batch_x: torch.Tensor, batch_y: torch.Tensor,
+          acc: torch.Tensor) -> torch.Tensor:
     """One BCE/Adam step of ``state.model`` in ``train()``; the learning rate
     is the schedule's at the 0-based update count, when there is one.
     ``acc`` is a device ``(2,)`` f32 running ``[loss_sum, correct]``,
     updated in place (a per-batch ``float(loss)`` would wait for the card).
     Returns the loss, on the device. The gradients stay in ``.grad``; a
     parameter the forward did not use (SpecRNet's discarded ``bn1``) gets
-    a zero gradient, so Adam moves it by its weight decay as optax does."""
+    a zero gradient, so Adam moves it by its weight decay as optax does.
+    Inside ``mesh.sharded()`` the batch is this rank's rows: the gradients
+    are averaged over ranks before the step, and ``acc`` and the returned
+    loss are the global batch's."""
     model = state.model
     model.train()
     out = model(batch_x)
@@ -66,6 +87,9 @@ def train_step(state: ts.TrainState, batch_x: torch.Tensor, batch_y: torch.Tenso
         for p in group["params"]:
             if p.grad is None and p.requires_grad:  # unused in the forward: optax updates it
                 p.grad = torch.zeros_like(p)
+    shard = mesh.shard_info()
+    if shard is not None:
+        mesh.average_gradients(p for g in state.optimizer.param_groups for p in g["params"])
     if state.schedule is not None:
         lr = state.schedule(state.step)
         for group in state.optimizer.param_groups:
@@ -74,8 +98,14 @@ def train_step(state: ts.TrainState, batch_x: torch.Tensor, batch_y: torch.Tenso
     state.step += 1
     with torch.no_grad():
         correct = (predict_label(out) == batch_y).sum()
-        acc += torch.stack([loss * batch_y.shape[0], correct.float()])
-    return loss.detach()
+        sums = torch.stack([loss * batch_y.shape[0], correct.float()])
+        if shard is None:
+            acc += sums
+            return loss.detach()
+        sums = mesh.all_reduce_sum(sums)
+        acc += sums
+        return sums[0] / (batch_y.shape[0] * shard[0])
+
 
 
 def make_eval_step(model: nn.Module) -> EvalStep:
@@ -149,6 +179,7 @@ class GDTrainer:
         if test_dataset is None:
             raise ValueError("pass an explicit test split")
         device = model_device(model)
+        mesh.replicate(model)
         train_loader, test_loader = self._loaders(dataset, test_dataset)
         state = ts.create_train_state(model, self.optimizer_kwargs, self.use_scheduler,
                                       batches_per_epoch=len(train_loader),

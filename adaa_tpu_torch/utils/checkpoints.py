@@ -9,7 +9,9 @@ directory layout with ``.pth`` in place of ``.msgpack``. The port's
 ``adaa_tpu.models.load_model`` (through its ``torch_import``). The port
 also reads the JAX package's ``.msgpack`` checkpoints (flax variable
 trees, decoded by ``utils/msgpack.py`` and mapped through the weight
-bridge); it does not write them.
+bridge), and ``save_checkpoint_msgpack`` writes one the JAX package's
+``load_checkpoint`` reads, under its path scheme
+``{dir}/{name}/ckpt[_{epoch:02d}].msgpack``. The trainers write ``.pth``.
 """
 from __future__ import annotations
 
@@ -26,11 +28,32 @@ LOGGER = logging.getLogger(__name__)
 def save_checkpoint(model: nn.Module, model_dir: Union[Path, str], name: str,
                     epoch: Optional[int] = None) -> Path:
     """Save ``model``'s weights as ``{model_dir}/{name}/ckpt[_{epoch:02d}].pth``."""
+    path = _ckpt_path(model_dir, name, epoch, ".pth")
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+    LOGGER.info("Training model saved under: %s", path)
+    return path
+
+
+def _ckpt_path(model_dir: Union[Path, str], name: str, epoch: Optional[int],
+               suffix: str) -> Path:
     full_model_dir = Path(model_dir) / name
     full_model_dir.mkdir(parents=True, exist_ok=True)
     epoch_str = f"_{epoch:02d}" if epoch is not None else ""
-    path = full_model_dir / f"ckpt{epoch_str}.pth"
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+    return full_model_dir / f"ckpt{epoch_str}{suffix}"
+
+
+def save_checkpoint_msgpack(model: nn.Module, model_dir: Union[Path, str], name: str,
+                            epoch: Optional[int] = None) -> Path:
+    """Save ``model``'s weights (an LCNN, RawNet3 or SpecRNet) as the JAX
+    model's variable tree in ``{model_dir}/{name}/ckpt[_{epoch:02d}].msgpack``."""
+    from adaa_tpu_torch.models import LCNN, RawNet3, SpecRNet, weights
+    from adaa_tpu_torch.utils import msgpack
+
+    kinds = {LCNN: "lcnn", RawNet3: "rawnet3", SpecRNet: "specrnet"}
+    if type(model) not in kinds:
+        raise ValueError(f"no .msgpack layout for {type(model).__name__}")
+    path = _ckpt_path(model_dir, name, epoch, ".msgpack")
+    msgpack.save(path, weights.flax_from_state_dict(kinds[type(model)], model.state_dict()))
     LOGGER.info("Training model saved under: %s", path)
     return path
 

@@ -165,16 +165,42 @@ exit code is not 0:
     ``AttackAnalyser`` callback, ``AttackPostAnalyser.
     read_waves_and_calc_metrics`` on the pairs it wrote (one row per pair,
     finite MCD >= 0, ``mcd_metrics.csv``) and the plots where matplotlib
-    imports.
+    imports;
+22. the rest of the JAX package, one JSON line per part: PGD-10 on the
+    bf16 LCNN at B=256 under each numerics switch (``ADAA_FUSED_LCNN=0``:
+    no layer-0 launch; ``ADAA_FOLD_BN=0`` with the fused trunk asked for:
+    no trunk launch; ``ADAA_BF16_FRONTEND=0``, ``ADAA_MFM_EQMASK=0``,
+    ``ADAA_POOL_EQMASK=0``: the default's launches), on RawNet3's b2n
+    configuration at B=64 (``ADAA_SINC_VJP=0``, ``ADAA_BF16_FRONTEND=0``:
+    its b2n launches) and on SpecRNet (``ADAA_POOL_EQMASK=0``: no kernel),
+    each in its ball and the box, its clean logits within
+    SWITCH_LOGIT_RTOL of the default's (relative to the largest; exact for
+    the eqmask switches) and within SWITCH_F32_RTOL of the same weights in
+    f32, the ``ADAA_BF16_FRONTEND=0`` features (LCNN) and encoder output
+    (RawNet3) bit-equal to the f32 model's, examples/s of a warm batch and
+    the idle share of a profiled one;
+    ``mel_spec`` at (64, 64600) against the CPU; RawNet2 (the ASVspoof2021
+    baseline's hyperparameters, 64,600-sample waves), Meso4,
+    MesoInception4 and Xception ((64, 4, 80, 404) maps) with finite logits
+    and a PGD-10 batch in its ball, examples/s; ``count_flops`` of LCNN
+    PGD-10 per example on the plain ops beside phase 4's examples/s and
+    the tensor-core share it implies (printed, not a metric); a
+    ``.msgpack`` written after three training steps and read back with
+    bit-equal logits; the adversarial-evaluation batch script on three
+    white-box entries (FGSM, PGDL2, FAB; ``--amount 64``, listed under
+    ``reduced``) with each report checked; ``dryrun_multichip(1)`` on an
+    NCCL group of one on the card.
 
 The last lines are the kernels' JSON summary (all nine kernel entries),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -1622,6 +1648,369 @@ def phase21_extra_attacks(attacks, bench, models, counters, set_seed, card) -> d
     return out
 
 
+# max |logits under a switch - default logits| over max |default logits|,
+# on the same clean batch, bf16 models: each switch moves the forward's
+# rounding points (the eqmask switches change only the backward, so their
+# forward is exact). Measured on an H100 (random weights: LCNN logits up
+# to 0.0139, RawNet3 b2n up to 0.211): LCNN 0.0082 unfused layer 0, 0.025
+# unfolded BNs, 0.030 f32 frontend; RawNet3 0.0059 f32 sinc conv, 0.0052
+# f32 encoder. Each band is ~3x its measured gap.
+SWITCH_LOGIT_RTOL = {"ADAA_FUSED_LCNN": 0.025, "ADAA_FOLD_BN": 0.075,
+                     "ADAA_BF16_FRONTEND": 0.09, "ADAA_MFM_EQMASK": 0.0,
+                     "ADAA_POOL_EQMASK": 0.0, "ADAA_SINC_VJP": 0.018,
+                     "rawnet3 ADAA_BF16_FRONTEND": 0.016}
+# max |logits - the f32 model's| over max |f32 logits|, the same weights in
+# f32 on the card with TF32 off (LCNN at precision "highest"): each
+# configuration against its own f32 result. Measured on an H100: LCNN
+# 0.0553-0.0604 over its six configurations, RawNet3 b2n 0.0030-0.0050,
+# SpecRNet 0.0427; each band is ~3x the largest.
+SWITCH_F32_RTOL = {"lcnn": 0.18, "rawnet3": 0.015, "specrnet": 0.13}
+PHASE22_REDUCED = {"multi_run": "3 of adv_eval_whitebox.yaml's 30 entries (FGSM, PGDL2, FAB), "
+                                "synthetic --amount 64: one batch of 64 each"}
+
+
+@contextlib.contextmanager
+def environ(env: dict):
+    """``os.environ`` updated with ``env`` inside, restored after."""
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def switch_checked(attacks, path, counters, env: dict, z_ref, z_f32) -> dict:
+    """Under ``env``: the clean logits against the default's ``z_ref`` and
+    the f32 model's ``z_f32``, then one warm PGD-10 batch, a counted one
+    (launches, ball and box), a timed one and a profiled one (the device's
+    idle share)."""
+    with environ(env):
+        with torch.no_grad():
+            z = path.model(path.x)
+        path.attack(path.x, path.y, path.generator)
+        torch.cuda.synchronize()
+        zero(counters)
+        adv = path.attack(path.x, path.y, path.generator)
+        torch.cuda.synchronize()
+        launches = snapshot(counters)
+        t0 = time.perf_counter()
+        path.attack(path.x, path.y, path.generator)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pwall, busy = busy_ms_of(lambda: path.attack(path.x, path.y, path.generator))
+    x01, mn, mx = attacks.to_minmax(path.x)
+    adv01 = (adv - mn) / (mx - mn)
+    linf = float((adv01 - x01).abs().max())
+    out = {"env": env,
+           "logit_rel_err": float((z - z_ref).abs().max() / z_ref.abs().max()),
+           "logit_rel_err_vs_f32": float((z - z_f32).abs().max() / z_f32.abs().max()),
+           "max_abs_logit": float(z_ref.abs().max()), "linf01": linf, "launches": launches,
+           "examples_per_s": path.x.shape[0] / wall, "idle_share": 1.0 - busy / (pwall * 1e3)}
+    check(bool(torch.isfinite(adv).all()), f"{env}: non-finite adversarial waves")
+    check(linf <= EPS + 1e-6, f"{env}: outside the eps ball: {linf}")
+    check(float(adv01.min()) >= -1e-6 and float(adv01.max()) <= 1 + 1e-6,
+          f"{env}: outside the [0, 1] box")
+    return out
+
+
+def f32_logits(model, x, **attrs):
+    """Logits of an f32 copy of ``model`` (``attrs`` set on it) with TF32 off."""
+    from adaa_tpu_torch.ops import layer0
+
+    f32 = copy.deepcopy(model)
+    for k, v in attrs.items():
+        setattr(f32, k, v)
+    with torch.no_grad(), layer0.ieee_f32():
+        z = f32(x)
+    del f32
+    return z
+
+
+def switch_bands(name: str, got: dict, band: float, model: str) -> None:
+    check(got["logit_rel_err"] <= band,
+          f"{name} logits differ from the default's by {got['logit_rel_err']} (band {band})")
+    check(got["logit_rel_err_vs_f32"] <= SWITCH_F32_RTOL[model],
+          f"{name} logits differ from the f32 model's by {got['logit_rel_err_vs_f32']}")
+
+
+def frontend_check(name: str, switched, default, f32) -> dict:
+    """Under ``ADAA_BF16_FRONTEND=0`` the features equal the f32 frontend's
+    bit for bit; the default's bf16 features do not."""
+    out = {"switched_equals_f32": bool(torch.equal(switched, f32)),
+           "default_max_abs_diff_vs_f32": float((default.float() - f32.float()).abs().max())}
+    check(out["switched_equals_f32"], f"{name}: ADAA_BF16_FRONTEND=0 features are not f32's")
+    check(out["default_max_abs_diff_vs_f32"] > 0, f"{name}: the default features are f32's")
+    return out
+
+
+def phase22_switches(attacks, bench, counters) -> dict:
+    """Part 1: the bf16 LCNN at B=256 under each numerics switch; part 2:
+    RawNet3 (b2n configuration) and SpecRNet at B=64."""
+    from adaa_tpu_torch.ops import frontends
+
+    out = {}
+    lcnn = bench.setup(B, seed=0, device="cuda")
+    with torch.no_grad():
+        z_ref = lcnn.model(lcnn.x)
+        feats = {"default": lcnn.model._frontend(lcnn.x),
+                 "f32": frontends.get_frontend(["lfcc"], compute="f32",
+                                               fused=False)(lcnn.x)[:, None]}
+        with environ({"ADAA_BF16_FRONTEND": "0"}):
+            feats["switched"] = lcnn.model._frontend(lcnn.x)
+    out["lcnn_frontend"] = frontend_check("LCNN", feats["switched"], feats["default"],
+                                          feats["f32"])
+    del feats
+    z_f32 = f32_logits(lcnn.model, lcnn.x, compute_dtype=None, precision="highest")
+    ref = switch_checked(attacks, lcnn, counters, {}, z_ref, z_f32)
+    out["lcnn_default"] = ref
+    check_layer0(ref["launches"])
+    switch_bands("LCNN default", ref, 0.0, "lcnn")
+    for switch in ("ADAA_FUSED_LCNN", "ADAA_BF16_FRONTEND", "ADAA_MFM_EQMASK",
+                   "ADAA_POOL_EQMASK"):
+        got = switch_checked(attacks, lcnn, counters, {switch: "0"}, z_ref, z_f32)
+        out[f"lcnn_{switch}=0"] = got
+        want_l0 = ({"fwd": 0, "bwd": 0} if switch == "ADAA_FUSED_LCNN"
+                   else ref["launches"]["layer0"])
+        check(got["launches"] == {**ref["launches"], "layer0": want_l0},
+              f"LCNN {switch}=0 launches {got['launches']}")
+        switch_bands(f"LCNN {switch}=0", got, SWITCH_LOGIT_RTOL[switch], "lcnn")
+    del lcnn
+    fused_trunk = bench.setup(B, seed=0, device="cuda",
+                              config={**bench.CONFIG, "fused_trunk": True})
+    got = switch_checked(attacks, fused_trunk, counters,
+                         {"ADAA_FOLD_BN": "0", "ADAA_FUSED_TRUNK": "1"}, z_ref, z_f32)
+    out["lcnn_ADAA_FOLD_BN=0_FUSED_TRUNK=1"] = got
+    check(got["launches"] == {**ref["launches"], "trunk": {"fwd": 0, "bwd": 0}},
+          f"LCNN ADAA_FOLD_BN=0 launches {got['launches']}")
+    switch_bands("LCNN ADAA_FOLD_BN=0", got, SWITCH_LOGIT_RTOL["ADAA_FOLD_BN"], "lcnn")
+    del fused_trunk
+    torch.cuda.empty_cache()
+
+    rawnet3 = bench.setup(RB, seed=0, device="cuda", model="rawnet3",
+                          config=bench.RAWNET3_B2N_CONFIG)
+    f32_model = copy.deepcopy(rawnet3.model)
+    f32_model.compute_dtype = None
+    with torch.no_grad():
+        z_ref = rawnet3.model(rawnet3.x)
+        encs = {"default": rawnet3.model._encoder(rawnet3.x)}
+        with environ({"ADAA_BF16_FRONTEND": "0"}):
+            encs["switched"] = rawnet3.model._encoder(rawnet3.x)
+        encs["f32"] = f32_model._encoder(rawnet3.x).to(torch.bfloat16)
+    del f32_model
+    out["rawnet3_encoder"] = frontend_check("RawNet3", encs["switched"], encs["default"],
+                                            encs["f32"])
+    del encs
+    z_f32 = f32_logits(rawnet3.model, rawnet3.x, compute_dtype=None)
+    ref = switch_checked(attacks, rawnet3, counters, {}, z_ref, z_f32)
+    out["rawnet3_b2n_default"] = ref
+    check(ref["launches"]["b2n"]["fwd"] >= 30 and ref["launches"]["b2n"]["bwd"] == 30,
+          f"RawNet3 b2n launches {ref['launches']}")
+    switch_bands("RawNet3 default", ref, 0.0, "rawnet3")
+    for switch in ("ADAA_SINC_VJP", "ADAA_BF16_FRONTEND"):
+        got = switch_checked(attacks, rawnet3, counters, {switch: "0"}, z_ref, z_f32)
+        out[f"rawnet3_b2n_{switch}=0"] = got
+        check(got["launches"] == ref["launches"], f"RawNet3 {switch}=0 launches {got['launches']}")
+        band = SWITCH_LOGIT_RTOL.get(f"rawnet3 {switch}", SWITCH_LOGIT_RTOL[switch])
+        switch_bands(f"RawNet3 {switch}=0", got, band, "rawnet3")
+    del rawnet3
+    torch.cuda.empty_cache()
+
+    spec = bench.setup(RB, seed=0, device="cuda", model="specrnet", config=bench.SPECRNET_CONFIG)
+    with torch.no_grad():
+        z_ref = spec.model(spec.x)
+    z_f32 = f32_logits(spec.model, spec.x, compute_dtype=None)
+    got = switch_checked(attacks, spec, counters, {"ADAA_POOL_EQMASK": "0"}, z_ref, z_f32)
+    out["specrnet_ADAA_POOL_EQMASK=0"] = got
+    check(not launched(got["launches"], ALL_KERNELS), f"SpecRNet launches {got['launches']}")
+    switch_bands("SpecRNet ADAA_POOL_EQMASK=0", got, 0.0, "specrnet")
+    del spec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase22_mel_spec(frontends) -> dict:
+    """Part 3: mel_spec at (64, 64600) on the card against the CPU: the
+    magnitude within 1e-5 relative (atol 1e-5 x its maximum); the phase
+    where the magnitude exceeds 1e-3 of its row's maximum, its error times
+    the magnitude (the error's arc in the complex plane) within the same
+    1e-5 x the maximum magnitude (cuBLAS and the CPU sum the projections
+    in other orders: a flat 1e-4 rad measured 7.2e-4 near the threshold)."""
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal((RB, 64_600))
+                         .astype(np.float32))
+    card = frontends.mel_spec(x.cuda()).cpu().numpy()
+    cpu = frontends.mel_spec(x).numpy()
+    mag, peak = cpu[:, 0], np.abs(cpu[:, 0]).max()
+    mag_err = float(np.abs(card[:, 0] - mag).max() / peak)
+    live = mag > 1e-3 * mag.max(axis=-1, keepdims=True)
+    dphase = np.abs(np.angle(np.exp(1j * (card[:, 1] - cpu[:, 1]))))
+    arc_err = float((dphase * mag)[live].max() / peak)
+    out = {"shape": list(card.shape), "magnitude_max_rel_err": mag_err,
+           "phase_max_abs_err": float(dphase[live].max()), "phase_arc_max_rel_err": arc_err,
+           "phase_checked_share": float(live.mean())}
+    check(card.shape == (RB, 2, 80, 404) and np.isfinite(card).all(), "mel_spec shape or values")
+    check(np.allclose(card[:, 0], mag, rtol=1e-5, atol=1e-5 * peak),
+          f"mel_spec magnitude differs by {mag_err}")
+    check(arc_err <= 1e-5, f"mel_spec phase differs by {arc_err} of the peak magnitude")
+    return out
+
+
+EXTRA_DETECTORS = {  # name -> (config, input): published widths
+    "rawnet2": ({}, "waves"),
+    "meso4": ({"input_channels": 4, "fc1_dim": 16 * 2 * 12}, "maps"),
+    "meso_inception4": ({"input_channels": 4, "fc1_dim": 16 * 2 * 12}, "maps"),
+    "xception": ({"input_channels": 4}, "maps"),
+}
+
+
+def phase22_extra_models(attacks, models, set_seed) -> dict:
+    """Part 4: each unwired detector at B=64: finite logits, one PGD-10
+    batch in its eps ball (waves through the wave-space min-max, feature
+    maps in [0, 1]), and the examples/s of a second batch."""
+    from adaa_tpu_torch.models.extra import get_extra_model
+
+    out = {}
+    rng = np.random.default_rng(23)
+    y = torch.from_numpy((np.arange(RB) % 2).astype(np.int64)).cuda()
+    for name, (cfg, kind) in EXTRA_DETECTORS.items():
+        gen = set_seed(0, "cuda")
+        model = models.init_model(get_extra_model(name, cfg), gen, "cuda").eval()
+        model.requires_grad_(False)
+        attack = attacks.build_attack("PGD", attacks.make_logits_fn(model))
+        if kind == "waves":
+            x = torch.from_numpy(rng.standard_normal((RB, 64_600)).astype(np.float32)).cuda()
+            attack = attacks.attack_in_wave_space(attack)
+        else:
+            x = torch.from_numpy(rng.uniform(0, 1, (RB, 4, 80, 404)).astype(np.float32)).cuda()
+        with torch.no_grad():
+            z = model(x)
+        adv = attack(x, y, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        attack(x, y, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if kind == "waves":
+            x01, mn, mx = attacks.to_minmax(x)
+            delta = (adv - mn) / (mx - mn) - x01
+        else:
+            delta = adv - x
+        linf = float(delta.abs().max())
+        out[name] = {"input": list(x.shape), "max_abs_logit": float(z.abs().max()),
+                     "linf01": linf, "examples_per_s": RB / wall}
+        check(tuple(z.shape) == (RB, 1) and bool(torch.isfinite(z).all()), f"{name} logits")
+        check(bool(torch.isfinite(adv).all()) and linf <= EPS + 1e-6,
+              f"{name}: PGD outside the eps ball: {linf}")
+        del model, x, adv
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase22_flops(bench, eps_per_s: float) -> dict:
+    """Part 5: count_flops of one LCNN PGD-10 batch at B=256 on the plain
+    versions, per example, beside phase 4's examples/s."""
+    from adaa_tpu_torch.utils.flops import count_flops
+
+    path = bench.setup(B, seed=0, device="cuda")
+    path.model.plain_ops = True
+    rep = count_flops(path.attack, path.x, path.y, path.generator)
+    per_example = rep["flops"] / B
+    check("has_kernel" not in rep, f"a kernel launched during the count: {rep}")
+    return {"flops_per_example": per_example, "phase4_examples_per_s": eps_per_s,
+            "tensor_core_share_vs_989_tflops": per_example * eps_per_s / PEAK_FLOPS["bf16"]}
+
+
+def phase22_msgpack(bench, models) -> dict:
+    """Part 6: the weights after three adversarial-training steps written as
+    a .msgpack, read back into a fresh model: logits bit-equal."""
+    import tempfile
+
+    from adaa_tpu_torch.utils.checkpoints import load_checkpoint, save_checkpoint_msgpack
+
+    path = bench.setup_train(RB, seed=0, device="cuda")
+    for _ in range(3):
+        bench.adv_train_step(path)
+    model = path.state.model.eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint_msgpack(model, tmp, "aad__lcnn__smoke", epoch=0)
+        size = ckpt.stat().st_size
+        fresh = models.get_model("lcnn", bench.TRAIN_CONFIGS["bf16"]).cuda().eval()
+        fresh.load_state_dict(load_checkpoint(ckpt, "lcnn"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            z, z_back = model(path.x), fresh(path.x)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(torch.equal(z, z_back), f"msgpack round trip logits differ by "
+                                  f"{float((z - z_back).abs().max())}")
+    return {"bytes": size, "logits_equal": True}
+
+
+def phase22_multi_run() -> dict:
+    """Part 7: the port's adversarial-evaluation batch script on three
+    white-box entries (FGSM, PGDL2, FAB on the LCNN config) on the card."""
+    import tempfile
+
+    import yaml
+
+    from adaa_tpu_torch.scripts.multi_runs import (
+        run_multiple_evaluations_on_adversarial_attacks as batch_runs)
+
+    cfg = os.path.abspath("configs/aa_evaluation/lcnn.yaml")
+    entries = [{"attack": a, "config": cfg, "attack_model_config": cfg}
+               for a in ("FGSM", "PGDL2", "FAB")]
+    here = os.getcwd()
+    root = logging.getLogger()
+    handlers = list(root.handlers)  # each CLI run adds its own
+    with tempfile.TemporaryDirectory() as tmp:
+        batch = os.path.join(tmp, "batch.yaml")
+        with open(batch, "w") as f:
+            yaml.dump(entries, f)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            reports = batch_runs.main(batch_runs.parse_args(["--config", batch, "--asv_path",
+                                                     "synthetic:64", "--amount", "64"]))
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+            root.handlers[:] = handlers
+    check(len(reports) == len(entries), f"{len(reports)} reports for {len(entries)} entries")
+    for entry, report in zip(entries, reports):
+        report_ok(f"multi-run {entry['attack']}", report)
+    return {"reports": dict(zip([e["attack"] for e in entries], reports)), "wall_s": wall}
+
+
+def phase22_rest(attacks, bench, models, counters, set_seed, card, eps_per_s) -> None:
+    """Phase 22: the numerics switches, mel_spec, the unwired detectors,
+    FLOP counting, .msgpack writing, a batch script and the data-parallel
+    dry run on one card, one JSON line per part."""
+    from adaa_tpu_torch.ops import frontends
+    from adaa_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    emit({"phase": 22, "part": "switches", **phase22_switches(attacks, bench, counters),
+          "card": card})
+    emit({"phase": 22, "part": "mel_spec", **phase22_mel_spec(frontends)})
+    emit({"phase": 22, "part": "extra_models", "batch": RB,
+          **phase22_extra_models(attacks, models, set_seed), "card": card})
+    emit({"phase": 22, "part": "flops", **phase22_flops(bench, eps_per_s), "card": card})
+    emit({"phase": 22, "part": "msgpack", **phase22_msgpack(bench, models)})
+    emit({"phase": 22, "part": "multi_run", **phase22_multi_run(),
+          "reduced": PHASE22_REDUCED["multi_run"]})
+    dry = dryrun_multichip(1)
+    check(dry["backend"] == "nccl" and dry["device"] == torch.cuda.get_device_name(0),
+          f"dryrun_multichip(1) ran on {dry}")
+    emit({"phase": 22, "part": "dryrun_multichip", "world_size": 1, **dry,
+          "phase_s": time.perf_counter() - t0})
+
+
 def phase9_highest_gradient(attacks, models, set_seed) -> None:
     """The f32-highest input gradient with torch's default TF32 flags vs the
     same gradient with TF32 off globally; cuDNN deterministic in both, so
@@ -1736,6 +2125,8 @@ def main() -> None:
     phase20_corpus(bench, models, all_counters, card)
     torch.cuda.empty_cache()
     phase21_extra_attacks(attacks, bench, models, all_counters, set_seed, card)
+    torch.cuda.empty_cache()
+    phase22_rest(attacks, bench, models, all_counters, set_seed, card, eps_per_s)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

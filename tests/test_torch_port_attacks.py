@@ -234,7 +234,15 @@ def test_package_imports_no_jax():
         "        'adaa_tpu_torch.attacks.cw', 'adaa_tpu_torch.attacks.apgd',\n"
         "        'adaa_tpu_torch.attacks.square', 'adaa_tpu_torch.attacks.extra',\n"
         "        'adaa_tpu_torch.attacks.composite', 'adaa_tpu_torch.attacks.save',\n"
-        "        'adaa_tpu_torch.eval.postanalysis'}\n"
+        "        'adaa_tpu_torch.eval.postanalysis', 'adaa_tpu_torch.models.extra',\n"
+        "        'adaa_tpu_torch.config', 'adaa_tpu_torch.utils.flops',\n"
+        "        'adaa_tpu_torch.parallel', 'adaa_tpu_torch.parallel.mesh',\n"
+        "        'adaa_tpu_torch.parallel.dryrun', 'adaa_tpu_torch.scripts.multi_runs',\n"
+        "        *('adaa_tpu_torch.scripts.multi_runs.run_multiple_' + m for m in (\n"
+        "            'evaluations', 'trainings', 'evaluations_on_adversarial_attacks',\n"
+        "            'trainings_on_adversarial_attacks'))}\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'importing the port started a process group'\n"
         "assert len(mods) >= 30 and need <= set(mods) and not bad, (mods, bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

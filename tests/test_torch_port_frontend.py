@@ -7,6 +7,11 @@ Tolerances:
   here, so only the summation order differs.
 * input gradient: relative L2 error < 1e-4 — autograd through unfold +
   matmul against the JAX closed-form STFT VJP, f32 throughout.
+* mel_spec: the magnitude within 1e-5 relative (atol 1e-5 x the largest
+  magnitude); the phase only where the magnitude exceeds 1e-3 of its
+  row's maximum, within 1e-4 rad (atan2 of two near-zero projections
+  turns summation-order noise into any angle); the input gradient of a
+  random projection of the magnitude within 1e-4 relative L2.
 """
 import jax
 import jax.numpy as jnp
@@ -82,7 +87,26 @@ def test_bf16_compute_falls_back_to_f32_on_cpu():
 def test_get_frontend_dispatch():
     assert tfe.get_frontend(["lfcc"]).func is tfe.lfcc
     assert tfe.get_frontend(["mfcc", "lfcc"]).func is tfe.mfcc
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfe.get_frontend(["mel_spec"])
+    assert tfe.get_frontend(["mel_spec"]) is tfe.mel_spec
     with pytest.raises(ValueError):
         tfe.get_frontend(["cqt"])
+
+
+def test_mel_spec_matches_jax():
+    x = waves(5, 2, 16_000)
+    jout = np.asarray(jfe.mel_spec(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    tout = tfe.mel_spec(xt)
+    assert tout.shape == jout.shape == (2, 2, 80, 101) and tout.dtype == torch.float32
+    t, j = tout.detach().numpy(), jout
+    np.testing.assert_allclose(t[:, 0], j[:, 0], rtol=1e-5, atol=1e-5 * np.abs(j[:, 0]).max())
+    live = j[:, 0] > 1e-3 * j[:, 0].max(axis=-1, keepdims=True)
+    assert live.mean() > 0.9
+    dphase = np.angle(np.exp(1j * (t[:, 1] - j[:, 1])))  # wrapped to (-pi, pi]
+    assert np.abs(dphase[live]).max() <= 1e-4
+
+    proj = np.random.default_rng(6).standard_normal(j[:, 0].shape).astype(np.float32)
+    gj = np.asarray(jax.grad(lambda a: (jfe.mel_spec(a)[:, 0] * proj).sum())(jnp.asarray(x)))
+    (gt,) = torch.autograd.grad((tout[:, 0] * torch.from_numpy(proj)).sum(), xt)
+    rel = np.linalg.norm(gt.numpy() - gj) / np.linalg.norm(gj)
+    assert rel < 1e-4, rel

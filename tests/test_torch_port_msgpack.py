@@ -9,6 +9,13 @@ bridge. Tolerances:
 * a checkpoint written by ``adaa_tpu.utils.checkpoints.save_checkpoint``
   and loaded by the port's ``load_model``: f32 logits within the bands of
   the model tests (LCNN and SpecRNet 1e-4 x max |logit|, RawNet3 1e-5).
+* the encoder against ``msgpack.packb(use_bin_type=True)`` and flax's
+  ``msgpack_serialize`` (chunks included): byte-equal;
+* a checkpoint the port writes (``save_checkpoint_msgpack``), read by the
+  JAX package's ``load_checkpoint`` into its model's variables: every
+  leaf bit-equal to ``torch_import.import_state_dict`` of the same
+  ``state_dict``; read back by the port: a ``state_dict`` bit-equal to the
+  model's.
 """
 from __future__ import annotations
 
@@ -23,12 +30,15 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from adaa_tpu import models as jmodels
+from adaa_tpu.models import torch_import
+from adaa_tpu.utils.checkpoints import load_checkpoint as jload_checkpoint
 from adaa_tpu.utils.checkpoints import save_checkpoint as jsave_checkpoint
 from adaa_tpu_torch import models as tmodels
 from adaa_tpu_torch.utils import checkpoints as tckpt
 from adaa_tpu_torch.utils import msgpack as tmsgpack
-from tests.torch_port_common import (CFG_F32, lcnn_variables, rawnet3_variables,
-                                     specrnet_variables, waves)
+from tests.torch_port_common import (CFG_F32, lcnn_variables, port_lcnn, port_rawnet3,
+                                     port_specrnet, rawnet3_variables, specrnet_variables,
+                                     waves)
 
 torch.set_num_threads(2)
 
@@ -150,3 +160,46 @@ def test_evaluate_cli_loads_a_msgpack_checkpoint(tmp_path, monkeypatch):
     want = tckpt.load_checkpoint(path, "specrnet")
     for k, v in model.state_dict().items():
         assert torch.equal(v, want[k]), k
+
+
+@settings(max_examples=150, deadline=None)
+@given(tree=trees)
+def test_encoder_matches_msgpack_on_random_trees(tree):
+    assert tmsgpack.packb(tree) == msgpack.packb(tree, use_bin_type=True)
+
+
+def test_encoder_matches_flax_with_extension_types_and_chunks(monkeypatch):
+    rng = np.random.default_rng(1)
+    tree = {"f32": rng.standard_normal((3, 4)).astype(np.float32), "z": {"b": np.int8(3)},
+            "i8": rng.integers(-5, 5, (7,)).astype(np.int8), "u64": np.arange(4, dtype=np.uint64),
+            "empty": np.zeros((0, 3), np.float32), "complex": 1.5 - 2j, "nested": {}}
+    assert tmsgpack.serialize(tree) == serialization.msgpack_serialize(tree)
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 16)
+    monkeypatch.setattr(tmsgpack, "MAX_CHUNK_SIZE", 16)
+    data = tmsgpack.serialize(tree)
+    assert b"__msgpack_chunked_array__" in data and data == serialization.msgpack_serialize(tree)
+
+
+PORTS = {"lcnn": port_lcnn, "specrnet": port_specrnet, "rawnet3": port_rawnet3}
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_port_writes_what_jax_reads(tmp_path, name):
+    make_variables, cfg, _, _ = MODELS[name]
+    variables = make_variables()
+    model = PORTS[name](cfg, variables)
+    path = tckpt.save_checkpoint_msgpack(model, tmp_path, f"aad__{name}__0", epoch=2)
+    assert path == tmp_path / f"aad__{name}__0" / "ckpt_02.msgpack"
+    target = jmodels.init_model(jmodels.get_model(name, cfg), jax.random.PRNGKey(0),
+                                wave_length=16_000 if name != "rawnet3" else 5_041)
+    got = jload_checkpoint(path, target)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    want = torch_import.import_state_dict(name, sd, target)
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(got))
+    flat_want = jax.tree_util.tree_leaves_with_path(want)
+    assert len(flat_got) == len(flat_want)
+    for key, leaf in flat_want:
+        np.testing.assert_array_equal(np.asarray(flat_got[key]), np.asarray(leaf), err_msg=str(key))
+    back = tckpt.load_checkpoint(path, name)
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(back[k], v, rtol=0, atol=0, msg=k)
