@@ -37,7 +37,8 @@ after warm-up and has no CPU path.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +96,31 @@ def setup(batch: Optional[int] = None, seed: int = 0, device: str = "cuda",
     return MainPath(net, attack_fn, x.to(device), y.to(device), gen)
 
 
+def cuda_ms(fn: Callable[[], Any], iters: int, warmup: int) -> float:
+    """Milliseconds per call of ``fn`` on cuda:0: ``warmup`` calls, then
+    CUDA events around ``iters`` calls enqueued back to back."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def first_call_s(fn: Callable[[], Any]) -> Tuple[Any, float]:
+    """``fn()``'s result and the seconds of its call through to the card's
+    last kernel (on a first call: kernel builds, cuDNN's autotuning)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def measure_torch(batch: Optional[int] = None, iters: int = 10, warmup: int = 2,
                   seed: int = 0, fused: bool = False, model: str = "lcnn",
                   config: Optional[Dict[str, Any]] = None, attack: str = "PGD") -> float:
@@ -103,18 +129,8 @@ def measure_torch(batch: Optional[int] = None, iters: int = 10, warmup: int = 2,
     if not torch.cuda.is_available():
         raise RuntimeError("measure_torch needs a CUDA device")
     _, attack_fn, x, y, gen = setup(batch, seed, "cuda", fused, model, config, attack)
-    batch = x.shape[0]
-    for _ in range(warmup):
-        attack_fn(x, y, gen)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        attack_fn(x, y, gen)
-    end.record()
-    end.synchronize()
-    return batch * iters / (start.elapsed_time(end) / 1e3)
+    ms = cuda_ms(lambda: attack_fn(x, y, gen), iters, warmup)
+    return x.shape[0] / (ms / 1e3)
 
 
 class TrainPath(NamedTuple):
@@ -157,21 +173,18 @@ def adv_train_step(path: TrainPath) -> torch.Tensor:
 def measure_torch_train(batch: int = BATCH, iters: int = 10, warmup: int = 2, seed: int = 0,
                         dtype: str = "bf16") -> Dict[str, float]:
     """``adv_train_fgsm_bce_{dtype}`` on cuda:0: ms per step, examples/s,
-    peak device memory of the timed steps and their last loss."""
+    the seconds of the first step, peak device memory of the timed steps
+    and their last loss."""
     if not torch.cuda.is_available():
         raise RuntimeError("measure_torch_train needs a CUDA device")
     path = setup_train(batch, seed, "cuda", config=TRAIN_CONFIGS[dtype])
+    _, first_s = first_call_s(lambda: adv_train_step(path))
     for _ in range(warmup):
         adv_train_step(path)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        loss = adv_train_step(path)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / iters
+    losses = []
+    ms = cuda_ms(lambda: losses.append(adv_train_step(path)), iters, 0)
     return {"ms_per_step": ms, "examples_per_sec": batch / (ms / 1e3), "batch": batch,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "loss": float(loss)}
+            "first_call_s": first_s, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "loss": float(losses[-1])}

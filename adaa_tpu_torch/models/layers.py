@@ -34,9 +34,10 @@ RawNet3 and SpecRNet use:
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +97,22 @@ def switch_on(env: str) -> bool:
     """One of the JAX package's numerics switches (``ADAA_MFM_EQMASK``,
     ``ADAA_FOLD_BN``, ...): on unless the variable is ``"0"``, read per call."""
     return os.environ.get(env) != "0"
+
+
+@contextlib.contextmanager
+def switches(env: Dict[str, str]) -> Iterator[None]:
+    """``os.environ`` updated with ``env`` (numerics switches, read per
+    call) inside, restored after."""
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def max_feature_map(x: torch.Tensor) -> torch.Tensor:

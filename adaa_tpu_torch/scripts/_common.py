@@ -9,9 +9,13 @@ selects the in-memory synthetic dataset instead (N items of L samples).
 """
 from __future__ import annotations
 
+import json
 import logging
+import subprocess
 import sys
-from typing import List, Optional, Union
+from datetime import date
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -35,6 +39,41 @@ def device_for(cpu: bool) -> str:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --cpu to run on the CPU")
     return "cuda"
+
+
+REPO = Path(__file__).resolve().parents[2]
+RESULTS_DIR = REPO / "chiprun_out"  # git-ignored: the benchmark tools' records
+
+
+def provenance() -> str:
+    """A record's stamp: '<git short rev> <iso date>' ('unknown' outside a
+    git checkout)."""
+    try:
+        rev = subprocess.run(["git", "rev-parse", "--short", "HEAD"], cwd=REPO,
+                             capture_output=True, text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        rev = ""
+    return f"{rev or 'unknown'} {date.today().isoformat()}"
+
+
+def card(device: str) -> str:
+    """The card's name and power limit as nvidia-smi gives them; "cpu" on the CPU."""
+    if device == "cpu":
+        return "cpu"
+    from adaa_tpu_torch.utils.profiling import card_line
+
+    return card_line()
+
+
+def write_rows(out: Union[str, Path], rows: Dict[str, Any], merge: bool = True) -> Dict[str, Any]:
+    """Write ``rows`` to the JSON file ``out``, into the rows it holds unless
+    ``merge`` is off; return what was written."""
+    out = Path(out)
+    results = json.loads(out.read_text()) if merge and out.exists() else {}
+    results.update(rows)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+    return results
 
 
 def add_dataset_path_args(parser) -> None:

@@ -27,6 +27,8 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, Iterator, Optional
 
+from adaa_tpu_torch.ops import launch_counts, launches_since
+
 __all__ = ["count_flops", "loop_trip"]
 
 COUNTED = frozenset({
@@ -58,13 +60,6 @@ def _counted(mode) -> int:
                if str(k) in COUNTED)
 
 
-def _launches() -> Dict[str, int]:
-    from adaa_tpu_torch.ops import b2n, layer0, lfcc_fused, pool, trunk
-
-    return {f"{op.__name__}.{k}": v for op in (b2n, layer0, lfcc_fused, pool, trunk)
-            for k, v in op.LAUNCHES.items()}
-
-
 @contextlib.contextmanager
 def loop_trip() -> Iterator[None]:
     """Marks one trip of a loop whose trip count depends on the data."""
@@ -85,7 +80,7 @@ def count_flops(fn, *example_args, while_trip: int = 1) -> Dict[str, Any]:
 
     global _ACTIVE
     report: Dict[str, Any] = {}
-    before = _launches()
+    before = launch_counts()
     mode = FlopCounterMode(display=False)
     mode.mod_tracker = _GlobalOnly()
     count = {"mode": mode, "trips": []}
@@ -99,7 +94,7 @@ def count_flops(fn, *example_args, while_trip: int = 1) -> Dict[str, Any]:
     if count["trips"]:
         report["has_while"] = True
         total += while_trip * count["trips"][0] - sum(count["trips"])
-    if _launches() != before:
+    if launches_since(before):
         report["has_kernel"] = True
     report["flops"] = total
     return report

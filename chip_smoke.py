@@ -189,7 +189,24 @@ exit code is not 0:
     bit-equal logits; the adversarial-evaluation batch script on three
     white-box entries (FGSM, PGDL2, FAB; ``--amount 64``, listed under
     ``reduced``) with each report checked; ``dryrun_multichip(1)`` on an
-    NCCL group of one on the card.
+    NCCL group of one on the card;
+23. the port's last entry points, one JSON line per part:
+    ``scripts/bench_effectiveness.run_family`` over the three families at
+    full width (LCNN and SpecRNet B=128, RawNet3 B=64, 64,600 samples):
+    PGD-10 from each surrogate scored on the f32 victim (TF32 off), every
+    row finite with a mean |logit shift| above 0, a flip rate in [0, 1],
+    its exact kernel launches (EFF_LAUNCHES) and its shift within
+    EFF_BAND of its family's f32 row; ``bench_attacks`` (FGSM, PGD, PGDL2,
+    CW, FAB on the bf16 LCNN at B=64, ``--iters 1``): ``mfu_pct`` in
+    (0, 100] and PGD-10's FLOPs an example 9.5-10.5x FGSM's;
+    ``bench_train`` (bf16 and f32 at B=256, ``--iters 3``); the
+    ``robustness_pipeline`` and ``transfer_attack`` examples on the bf16
+    detectors (``ADAA_BF16=1``) at 64,600 samples and their default
+    ``--train-n`` and ``--epochs``, every accuracy finite and in [0, 1]
+    (not gated on its value) and each attack's layer-0 launches on the LCNN
+    (none from the SpecRNet source), then ``attack_demo`` and
+    ``performance_comparison`` at their defaults. The depth cuts are under
+    each line's ``reduced``.
 
 The last lines are the kernels' JSON summary (all nine kernel entries),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -1669,19 +1686,11 @@ PHASE22_REDUCED = {"multi_run": "3 of adv_eval_whitebox.yaml's 30 entries (FGSM,
                                 "synthetic --amount 64: one batch of 64 each"}
 
 
-@contextlib.contextmanager
 def environ(env: dict):
     """``os.environ`` updated with ``env`` inside, restored after."""
-    before = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k, v in before.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    from adaa_tpu_torch.models.layers import switches
+
+    return switches(env)
 
 
 def switch_checked(attacks, path, counters, env: dict, z_ref, z_f32) -> dict:
@@ -2011,6 +2020,202 @@ def phase22_rest(attacks, bench, models, counters, set_seed, card, eps_per_s) ->
           "phase_s": time.perf_counter() - t0})
 
 
+# PGD-10's exact launches a batch on each surrogate of bench_effectiveness
+# (kernel.direction -> count; a surrogate not named launches none)
+EFF_LAUNCHES = {
+    "bf16_trunk_f32_frontend": {"layer0.fwd": 10, "layer0.bwd": 10},
+    "bf16_trunk_bf16_frontend": {"layer0.fwd": 10, "layer0.bwd": 10},
+    "bf16_fused": {"layer0.fwd": 10, "layer0.bwd": 10, "lfcc_fused.fwd": 10,
+                   "trunk.fwd": 20, "trunk.bwd": 20},
+    "specrnet:bf16_fused": {"lfcc_fused.fwd": 10},
+    "rawnet3:bf16_fused_b2n": {"b2n.fwd": 30, "b2n.bwd": 30},
+    "rawnet3:bf16_pool": {"pool.fwd": 10, "pool.bwd": 10},
+}
+# each bf16 row's mean |logit shift| on the f32 victim over its family's f32
+# row must lie within 1 +- its band: ~3x the gap measured on an H100 (NVIDIA
+# H100 80GB HBM3, 700.00 W), at least 0.03. Measured: LCNN 1.0052 (f32
+# frontend), 1.0144 (bf16 frontend), 1.0047 (fused); SpecRNet 0.9878, 0.9878,
+# 1.0013 (fused); RawNet3 1.0005 (f32 encoder), 0.7938 (bf16 encoder), 0.7836
+# (b2n), 0.7888 (pool): the bf16 encoder tail rounds the sinc outputs, whose
+# change under a 5e-4 step is below a bf16 ulp. The JAX record has 0.91-1.01
+# against an f32 surrogate at the TPU's default precision.
+EFF_BAND = {"bf16_trunk_f32_frontend": 0.03, "bf16_trunk_bf16_frontend": 0.045,
+            "bf16_fused": 0.03, "specrnet:bf16_trunk_f32_frontend": 0.04,
+            "specrnet:bf16_trunk_bf16_frontend": 0.04, "specrnet:bf16_fused": 0.03,
+            "rawnet3:bf16_trunk_f32_encoder": 0.03, "rawnet3:bf16_trunk_bf16_encoder": 0.65,
+            "rawnet3:bf16_fused_b2n": 0.65, "rawnet3:bf16_pool": 0.65}
+# layer 0's launches for one attack on the bf16 LCNN (forward, dx), as
+# attack_checked / phase 15 count them: FAB 100 steps, >= 200 forwards
+EXAMPLE_LAYER0 = {"FGSM_eps001": (1, 1), "PGD_eps001": (10, 10), "PGDL2_eps20": (10, 10),
+                  "FAB": (200, 100)}
+PHASE23_REDUCED = {
+    "bench_effectiveness": "--iters 1 (3): one timed batch a surrogate after the first",
+    "bench_attacks": "FGSM, PGD, PGDL2, CW, FAB of the ten default attacks; --iters 1 (3)",
+    "bench_train": "--iters 3 (10)",
+}
+
+
+def phase23_effectiveness() -> dict:
+    """Part (a): bench_effectiveness over the three families at full width."""
+    from adaa_tpu_torch.scripts import bench_effectiveness as be
+
+    rows = {}
+    for family in be.FAMILIES:
+        prefix = "" if family == "lcnn" else f"{family}:"
+        got = be.run_family(family, iters=1, device="cuda")
+        f32 = got["f32_surrogate"]["mean_abs_logit_shift"]
+        for name, row in got.items():
+            key = prefix + name
+            row["ratio_to_f32"] = row["mean_abs_logit_shift"] / f32
+            rows[key] = row
+            check(np.isfinite(row["mean_abs_logit_shift"]) and row["mean_abs_logit_shift"] > 0,
+                  f"{key}: mean logit shift {row['mean_abs_logit_shift']}")
+            check(0 <= row["flip_rate"] <= 1, f"{key}: flip rate {row['flip_rate']}")
+            check(np.isfinite(row["examples_per_sec"]) and row["examples_per_sec"] > 0,
+                  f"{key}: examples/s {row['examples_per_sec']}")
+            check(row["launches"] == EFF_LAUNCHES.get(key, {}),
+                  f"{key}: launches {row['launches']}, want {EFF_LAUNCHES.get(key, {})}")
+            band = EFF_BAND.get(key, 0.0)  # the f32 rows: 1 by definition
+            check(abs(row["ratio_to_f32"] - 1) <= band,
+                  f"{key}: shift {row['ratio_to_f32']} x the f32 surrogate's (band {band})")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase23_attacks(tmp: str) -> dict:
+    """Part (b): bench_attacks on the bf16 LCNN at B=64."""
+    from adaa_tpu_torch.scripts import bench_attacks as ba
+
+    rows = ba.main(["--attacks", "FGSM", "PGD", "PGDL2", "CW", "FAB", "--batch", "64",
+                    "--iters", "1", "--out", os.path.join(tmp, "bench_attacks.json")])
+    for key, row in rows.items():
+        check(np.isfinite(row["examples_per_sec"]) and row["examples_per_sec"] > 0,
+              f"{key}: examples/s {row['examples_per_sec']}")
+        check(0 < row["mfu_pct"] <= 100, f"{key}: mfu_pct {row['mfu_pct']}")
+    ratio = rows["PGD"]["flops_per_example"] / rows["FGSM"]["flops_per_example"]
+    check(9.5 <= ratio <= 10.5, f"PGD-10 counts {ratio} x FGSM's FLOPs")
+    return {"rows": rows, "pgd_over_fgsm_flops": ratio}
+
+
+def phase23_train(tmp: str) -> dict:
+    """Part (c): bench_train, bf16 and f32, at B=256."""
+    from adaa_tpu_torch.scripts import bench_train as bt
+
+    rows = bt.main(["--iters", "3", "--out", os.path.join(tmp, "bench_train.json")])
+    for key, row in rows.items():
+        check(np.isfinite(row["loss"]) and row["examples_per_sec"] > 0, f"{key}: {row}")
+    return rows
+
+
+@contextlib.contextmanager
+def attack_launches(calls: list):
+    """Each ``examples._common.attacked`` call inside appends (attack, its
+    launches) to ``calls``."""
+    from adaa_tpu_torch.examples import _common
+    from adaa_tpu_torch.ops import launch_counts, launches_since
+
+    attacked = _common.attacked
+
+    def counted(name, *args):
+        before = launch_counts()
+        adv = attacked(name, *args)
+        torch.cuda.synchronize()
+        calls.append((name, launches_since(before)))
+        return adv
+
+    _common.attacked = counted
+    try:
+        yield
+    finally:
+        _common.attacked = attacked
+
+
+def timed(fn):
+    """``fn()`` and its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def accuracies_ok(what: str, tree) -> None:
+    """Every accuracy of an example's ``run()`` (the seconds left out) finite
+    and in [0, 1]."""
+    for k, v in tree.items():
+        if k in ("train", "advtrain"):
+            continue
+        if isinstance(v, dict):
+            accuracies_ok(f"{what}.{k}", v)
+        else:
+            check(np.isfinite(v) and 0 <= v <= 1, f"{what}.{k}: accuracy {v}")
+
+
+def layer0_calls_ok(what: str, calls) -> None:
+    for name, got in calls:
+        fwd, bwd = EXAMPLE_LAYER0[name]
+        check(got.get("layer0.bwd") == bwd and got.get("layer0.fwd", 0) >= fwd
+              and set(got) == {"layer0.fwd", "layer0.bwd"},
+              f"{what} {name}: launches {got}, want layer 0 >= {fwd} + {bwd}")
+
+
+def phase23_examples(tmp: str) -> dict:
+    """Part (d): the two trained-detector examples on the bf16 detectors
+    (``ADAA_BF16=1``, as the JAX package's switch) at 64,600 samples, and
+    the other two examples at their defaults."""
+    from adaa_tpu_torch.examples import (attack_demo, performance_comparison,
+                                         robustness_pipeline, transfer_attack)
+
+    out = {}
+    with environ({"ADAA_BF16": "1"}):
+        calls = {}
+        for name, example in (("robustness_pipeline", robustness_pipeline),
+                              ("transfer_attack", transfer_attack)):
+            calls[name] = []
+            with attack_launches(calls[name]):
+                out[name], wall = timed(lambda: example.run(wave_len=64_600))
+            accuracies_ok(name, out[name])
+            out[name].update(wall_s=wall, launches=calls[name])
+    check([c[0] for c in calls["robustness_pipeline"]]
+          == [*robustness_pipeline.ATTACKS, *robustness_pipeline.AFTER],
+          f"robustness_pipeline attacks {calls['robustness_pipeline']}")
+    layer0_calls_ok("robustness_pipeline", calls["robustness_pipeline"])
+    n = len(transfer_attack.ATTACKS)  # crafted on SpecRNet: no kernel
+    check([c[1] for c in calls["transfer_attack"][:n]] == [{}] * n,
+          f"SpecRNet-source attacks launched {calls['transfer_attack']}")
+    layer0_calls_ok("transfer_attack floor", calls["transfer_attack"][n:])
+    out["attack_demo"], wall = timed(
+        lambda: attack_demo.run(save_path=os.path.join(tmp, "adv_demo.npz")))
+    out["attack_demo"]["wall_s"] = wall
+    out["performance_comparison"], wall = timed(performance_comparison.run)
+    out["performance_comparison"]["wall_s"] = wall
+    for name, row in out["attack_demo"]["attacks"].items():
+        check(0 <= row["robust_accuracy"] <= 1 and np.isfinite(row["max_abs_delta"]),
+              f"attack_demo {name}: {row}")
+    for name, row in out["performance_comparison"]["attacks"].items():
+        check(0 <= row["success"] <= 1 and all(np.isfinite(row[k]) for k in ("l0", "l2", "linf")),
+              f"performance_comparison {name}: {row}")
+    return out
+
+
+def phase23_entry_points(card) -> None:
+    """Phase 23: the port's benchmark tools and examples on the card, one
+    JSON line per part."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    emit({"phase": 23, "part": "bench_effectiveness", "rows": phase23_effectiveness(),
+          "band": EFF_BAND, "card": card, "reduced": PHASE23_REDUCED["bench_effectiveness"]})
+    with tempfile.TemporaryDirectory() as tmp:
+        emit({"phase": 23, "part": "bench_attacks", **phase23_attacks(tmp), "card": card,
+              "reduced": PHASE23_REDUCED["bench_attacks"]})
+        torch.cuda.empty_cache()
+        emit({"phase": 23, "part": "bench_train", "rows": phase23_train(tmp), "card": card,
+              "reduced": PHASE23_REDUCED["bench_train"]})
+        torch.cuda.empty_cache()
+        emit({"phase": 23, "part": "examples", **phase23_examples(tmp), "card": card,
+              "phase_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+
 def phase9_highest_gradient(attacks, models, set_seed) -> None:
     """The f32-highest input gradient with torch's default TF32 flags vs the
     same gradient with TF32 off globally; cuDNN deterministic in both, so
@@ -2127,6 +2332,8 @@ def main() -> None:
     phase21_extra_attacks(attacks, bench, models, all_counters, set_seed, card)
     torch.cuda.empty_cache()
     phase22_rest(attacks, bench, models, all_counters, set_seed, card, eps_per_s)
+    torch.cuda.empty_cache()
+    phase23_entry_points(card)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

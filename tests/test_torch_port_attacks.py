@@ -240,7 +240,11 @@ def test_package_imports_no_jax():
         "        'adaa_tpu_torch.parallel.dryrun', 'adaa_tpu_torch.scripts.multi_runs',\n"
         "        *('adaa_tpu_torch.scripts.multi_runs.run_multiple_' + m for m in (\n"
         "            'evaluations', 'trainings', 'evaluations_on_adversarial_attacks',\n"
-        "            'trainings_on_adversarial_attacks'))}\n"
+        "            'trainings_on_adversarial_attacks')),\n"
+        "        *('adaa_tpu_torch.scripts.bench_' + m for m in ('attacks', 'effectiveness', 'train')),\n"
+        "        'adaa_tpu_torch.examples', *('adaa_tpu_torch.examples.' + m for m in (\n"
+        "            'attack_demo', 'performance_comparison', 'transfer_attack',\n"
+        "            'robustness_pipeline'))}\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'importing the port started a process group'\n"
         "assert len(mods) >= 30 and need <= set(mods) and not bad, (mods, bad)\n"

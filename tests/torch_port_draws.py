@@ -128,3 +128,21 @@ def attack_draws(name: str, key, shape, params=None):
         return [_apgd_starts(k_apgd, shape, 1), _apgd_starts(k_apgdt, shape, 1), None,
                 _square(k_square, shape, 5000, 0.8)]
     raise KeyError(f"{name} draws no random numbers")
+
+
+def gradient_starts(name: str, key, shape, eps):
+    """The random start of the JAX ``pgd`` (uniform in the eps ball) or
+    ``pgdl2`` (a normal direction, then a uniform radius per row), in the
+    order the port's ``global_draw`` asks for them."""
+    if name == "PGD":
+        return [_uniform(key, shape, -eps, eps)]
+    k1, k2 = jax.random.split(key)
+    return [_normal(k1, shape), _uniform(k2, (shape[0], 1), 0.0, 1.0)]
+
+
+def replay_starts(monkeypatch, draws) -> None:
+    """Make the port's gradient attacks draw ``draws``, in order."""
+    from adaa_tpu_torch.attacks import gradient
+
+    it = iter(draws)
+    monkeypatch.setattr(gradient, "global_draw", lambda sample, shape: next(it).reshape(shape))
